@@ -122,16 +122,26 @@ def morph_open_cross(mask: torch.Tensor, iterations: int = 1
     return m
 
 
-def dt_edge_channel(bgr: torch.Tensor, cfg: DTEdgeConfig = DTEdgeConfig(),
-                    edt=edt_l2) -> torch.Tensor:
-    """DT-Edge channel of a batch of BGR uint8 images [B, H, W, 3] ->
-    uint8 [B, H, W], on the tensor's device. ``edt`` is the distance
-    transform; ``ops.edt.edt_l2_plain`` gives the plain-version map."""
+def edge_mask(bgr: torch.Tensor, cfg: DTEdgeConfig = DTEdgeConfig()
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Edge mask of a batch of BGR uint8 images [B, H, W, 3]: gray ->
+    multi-scale Scharr magnitude -> pixels at or above its ``p_hi``
+    percentile -> cross morphological open. Returns the bool mask
+    [B, H, W] (what the EDT measures distances to) and the magnitude."""
     gray = bgr_to_gray_u8(bgr)
     acc = multi_scale_scharr(gray, cfg.sigmas)
     edges = acc >= percentile_hw(acc, (cfg.p_hi,))[:, :, None]
     if cfg.morph_open > 0:
         edges = morph_open_cross(edges, cfg.morph_open)
+    return edges, acc
+
+
+def dt_edge_channel(bgr: torch.Tensor, cfg: DTEdgeConfig = DTEdgeConfig(),
+                    edt=edt_l2) -> torch.Tensor:
+    """DT-Edge channel of a batch of BGR uint8 images [B, H, W, 3] ->
+    uint8 [B, H, W], on the tensor's device. ``edt`` is the distance
+    transform; ``ops.edt.edt_l2_plain`` gives the plain-version map."""
+    edges, acc = edge_mask(bgr, cfg)
     dist = edt(edges)
 
     lohi = percentile_hw(dist, (1.0, 99.0))

@@ -4,12 +4,14 @@ Two separable passes, each a CUDA kernel (``csrc/edt.cu``) beside a plain
 PyTorch version of the same function:
 
   pass 1 (columns): d0[i, j] = min(|i - k| : mask[k, j]), capped at 1e9
-  pass 2 (rows):    D2[i, j] = min_k min(d0[i, k], 1e9)^2 + (j - k)^2
+  pass 2 (rows):    D[i, j] = sqrt(min(D2[i, j], 1e18)),
+                    D2[i, j] = min_k min(d0[i, k], 1e9)^2 + (j - k)^2
 
-``edt_l2`` returns sqrt(min(D2, 1e18)), which equals
-``scipy.ndimage.distance_transform_edt(~mask)``. A wrapper runs its plain
-version only for a tensor on the CPU; for a CUDA tensor it launches the
-kernel or raises. ``LAUNCHES`` counts kernel launches per wrapper.
+so ``edt_l2`` is the two passes and nothing else (two kernel launches on
+the card), and equals ``scipy.ndimage.distance_transform_edt(~mask)``. A
+wrapper runs its plain version only for a tensor on the CPU; for a CUDA
+tensor it launches the kernel or raises. ``LAUNCHES`` counts kernel
+launches per wrapper.
 """
 
 from __future__ import annotations
@@ -29,9 +31,8 @@ KERNEL_SOURCE = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc", "edt.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
-# a block's shared-memory limit on Hopper: pass 2 stages one row there
+# a block's shared-memory limit on Hopper: pass 2 stages its rows there
 MAX_SMEM_BYTES = 232448
-_MAX_GRID_Y = 65535
 
 LAUNCHES = {"edt_pass1_columns": 0, "edt_pass2_rows": 0}
 
@@ -55,6 +56,8 @@ def kernel_library() -> ctypes.CDLL:
     lib.edt_pass1_columns_launch.argtypes = [vp, vp, ci, ci, ci, vp]
     lib.edt_pass2_rows_launch.restype = ci
     lib.edt_pass2_rows_launch.argtypes = [vp, vp, ci, ci, vp]
+    lib.edt_pass2_rows_smem_bytes.restype = ctypes.c_size_t
+    lib.edt_pass2_rows_smem_bytes.argtypes = [ci]
     return lib
 
 
@@ -100,9 +103,6 @@ def edt_pass1_columns(mask: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"edt_pass1_columns wants bool/uint8 [B, H, W], "
                          f"got {mask.dtype} {tuple(mask.shape)}")
     B, H, W = mask.shape
-    if B > _MAX_GRID_Y:
-        raise ValueError(f"edt_pass1_columns: {B} images exceed the grid's "
-                         f"{_MAX_GRID_Y}")
     mask = mask.contiguous()
     out = torch.empty(mask.shape, dtype=torch.float32, device=mask.device)
     _check(kernel_library().edt_pass1_columns_launch(
@@ -117,8 +117,9 @@ def edt_pass1_columns(mask: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def edt_pass2_rows_plain(d0: torch.Tensor, chunk: int = 32) -> torch.Tensor:
-    """Plain version of K2: chunked brute force over output columns.
-    d0: [N, W] float32 column distances -> squared distances [N, W]."""
+    """Plain version of K2: chunked brute force over output columns, then
+    the capped, correctly rounded sqrt.
+    d0: [N, W] float32 column distances -> distances [N, W]."""
     f = torch.clamp_max(d0, INF)
     f = f * f
     W = f.shape[-1]
@@ -130,12 +131,12 @@ def edt_pass2_rows_plain(d0: torch.Tensor, chunk: int = 32) -> torch.Tensor:
         para = j[:, None] - k[None, :]
         para = para * para                                  # [chunk, W]
         out[:, c0:c0 + len(j)] = (f[:, None, :] + para).amin(dim=-1)
-    return out
+    return sqrt_rn(torch.clamp_max(out, INF * INF))
 
 
 def edt_pass2_rows(d0: torch.Tensor) -> torch.Tensor:
     """K2 on a CUDA tensor, its plain version on a CPU tensor.
-    d0: float32 [N, W] -> float32 [N, W] squared distances."""
+    d0: float32 [N, W] column distances -> float32 [N, W] distances."""
     if d0.device.type == "cpu":
         return edt_pass2_rows_plain(d0)
     if d0.device.type != "cuda":
@@ -144,9 +145,10 @@ def edt_pass2_rows(d0: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"edt_pass2_rows wants float32 [N, W], got "
                          f"{d0.dtype} {tuple(d0.shape)}")
     N, W = d0.shape
-    if W * 4 > MAX_SMEM_BYTES:
+    smem = kernel_library().edt_pass2_rows_smem_bytes(W)
+    if smem > MAX_SMEM_BYTES:
         raise ValueError(f"edt_pass2_rows: a row of {W} floats needs "
-                         f"{W * 4} bytes of shared memory, over the "
+                         f"{smem} bytes of shared memory, over the "
                          f"{MAX_SMEM_BYTES} a block can have")
     d0 = d0.contiguous()
     out = torch.empty_like(d0)
@@ -166,18 +168,18 @@ def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     PyTorch's CPU sqrt kernels are not always correctly rounded (in
     float32 they miss by one ulp; in float64 rounded to float32 they did
     now and then on a first call), so on the CPU this takes numpy's, which
-    is the hardware's; on CUDA a float64 sqrt rounded once to float32,
-    which is exact."""
+    is the hardware's. On CUDA, float32 ``torch.sqrt`` is correctly
+    rounded: chip_smoke.py checks it against a float64 sqrt rounded once
+    to float32 over every non-negative finite float32."""
     if x.device.type == "cpu":
         return torch.from_numpy(np.sqrt(x.detach().numpy()))
-    return torch.sqrt(x.to(torch.float64)).to(torch.float32)
+    return torch.sqrt(x)
 
 
 def _edt_from_passes(mask: torch.Tensor, pass1, pass2) -> torch.Tensor:
     *lead, H, W = mask.shape
     d0 = pass1(mask.reshape(-1, H, W))
-    sq = pass2(d0.reshape(-1, W)).reshape(*lead, H, W)
-    return sqrt_rn(torch.clamp_max(sq, INF * INF))
+    return pass2(d0.reshape(-1, W)).reshape(*lead, H, W)
 
 
 def edt_l2(mask: torch.Tensor) -> torch.Tensor:

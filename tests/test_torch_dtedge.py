@@ -12,6 +12,7 @@ import torch
 import jax.numpy as jnp
 
 from oriented_object_detection_tpu.ops import dtedge as JDT
+from oriented_object_detection_tpu.ops import edt as JE
 from oriented_object_detection_tpu_torch.config import DTEdgeConfig
 from oriented_object_detection_tpu_torch.ops import dtedge as TDT
 from oriented_object_detection_tpu_torch.ops import edt as TE
@@ -92,6 +93,29 @@ def test_morph_open_bit_equal():
     ref = np.asarray(JDT.morph_open_cross(jnp.asarray(m)))
     got = TDT.morph_open_cross(torch.from_numpy(m)).numpy()
     np.testing.assert_array_equal(got, ref)
+
+
+def test_edge_mask_then_edt_equals_the_channel_steps(tiles):
+    """``edge_mask`` + ``edt_l2`` give what ``dt_edge_channel`` computed
+    inline before the split, and the JAX package's steps."""
+    t = torch.from_numpy(tiles[:2])
+    cfg = DTEdgeConfig()
+    gray = TDT.bgr_to_gray_u8(t)
+    acc = TDT.multi_scale_scharr(gray, cfg.sigmas)
+    inline = TDT.morph_open_cross(
+        acc >= TDT.percentile_hw(acc, (cfg.p_hi,))[:, :, None],
+        cfg.morph_open)
+    edges, mag = TDT.edge_mask(t, cfg)
+    np.testing.assert_array_equal(edges.numpy(), inline.numpy())
+    np.testing.assert_array_equal(mag.numpy(), acc.numpy())
+
+    jacc = JDT.multi_scale_scharr(JDT.bgr_to_gray_u8(jnp.asarray(tiles[:2])),
+                                  cfg.sigmas)
+    jedges = JDT.morph_open_cross(JDT.binarize_percentile(jacc, cfg.p_hi),
+                                  cfg.morph_open)
+    np.testing.assert_array_equal(edges.numpy(), np.asarray(jedges))
+    np.testing.assert_array_equal(
+        TE.edt_l2(edges).numpy(), np.asarray(JE.edt_l2(jedges)))
 
 
 def test_plain_edt_gives_the_same_map(tiles):

@@ -1,8 +1,9 @@
 """The port's exact EDT (ops/edt.py) against the JAX package's: the plain
 versions of both CUDA kernels and ``edt_l2`` are bit-equal to JAX
 ``edt_l2`` in its XLA form and in its Pallas form (interpret mode), and to
-scipy in squared space. The CUDA kernels themselves are held to these plain
-versions on the card by chip_smoke.py."""
+scipy. Pass 2 ends in the capped sqrt, so its output is the distance. The
+CUDA kernels themselves are held to these plain versions on the card by
+chip_smoke.py."""
 
 import numpy as np
 import pytest
@@ -51,7 +52,8 @@ def test_pass1_plain_bit_equal_to_capped_jax(masks_416):
 def test_pass2_plain_bit_equal_to_jax(masks_416):
     d0 = np.asarray(JE._edt_pass1_columns(jnp.asarray(masks_416)))
     flat = d0.reshape(-1, 416)
-    ref = np.asarray(JE._edt_pass2_rows_xla(jnp.asarray(flat)))
+    ref = np.sqrt(np.minimum(np.asarray(JE._edt_pass2_rows_xla(
+        jnp.asarray(flat))), np.float32(JE._INF ** 2)))
     got = TE.edt_pass2_rows_plain(torch.from_numpy(
         np.minimum(flat, np.float32(JE._INF)))).numpy()
     np.testing.assert_array_equal(got, ref)
@@ -81,12 +83,38 @@ def test_edt_l2_bit_equal_to_jax_pallas_interpret(case):
 
 
 def test_squared_distances_equal_scipy(masks_416):
+    """Pass 2 gives distances: scipy's float64 distance rounded once to
+    float32 (correctly rounded, as a float64 sqrt of an integer below 2^53
+    rounded to float32 always is)."""
     m = masks_416[1:]        # scipy has no answer for an edge-free image
     d0 = TE.edt_pass1_columns(torch.from_numpy(m))
-    sq = TE.edt_pass2_rows(d0.reshape(-1, 416)).reshape(m.shape).numpy()
+    dist = TE.edt_pass2_rows(d0.reshape(-1, 416)).reshape(m.shape).numpy()
     for b in range(len(m)):
         ref = scipy_nd.distance_transform_edt(~m[b])
-        np.testing.assert_array_equal(sq[b], np.round(ref ** 2))
+        np.testing.assert_array_equal(dist[b], ref.astype(np.float32))
+
+
+def _ragged_mask(shape, kind):
+    if kind == "empty":
+        return np.zeros(shape, bool)
+    if kind == "all_edge":
+        return np.ones(shape, bool)
+    return np.random.RandomState(7).rand(*shape) < 0.01
+
+
+@pytest.mark.parametrize("kind", ["empty", "all_edge", "sparse"])
+@pytest.mark.parametrize("shape", [(3, 37, 53), (1, 1, 700), (5, 416, 1),
+                                   (1, 1, 20000)])
+def test_plain_versions_bit_equal_to_jax_on_ragged_shapes(shape, kind):
+    """Shapes that cut the kernels' column strips, row segments and row
+    slots raggedly (chip_smoke.py holds the kernels to the plain versions
+    on these shapes and a 4097-row one); [1, 1, 20000] is a row wide
+    enough for the shared-memory opt-in (one row of it: the JAX brute
+    force takes about 1.5 s a row here)."""
+    mask = _ragged_mask(shape, kind)
+    ref = np.asarray(JE.edt_l2(jnp.asarray(mask), use_pallas=False))
+    got = TE.edt_l2_plain(torch.from_numpy(mask)).numpy()
+    np.testing.assert_array_equal(got, ref)
 
 
 def test_edge_free_image_is_capped():
