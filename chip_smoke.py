@@ -8,18 +8,16 @@ Phases, each printing one JSON line (warnings go to stderr):
 1. device  - the card's name and power limit (nvidia-smi) and the float32
              matmul/convolution precision it runs with (TF32 off).
 2. build   - builds, all at once, the EDT kernels (``csrc/edt.cu``, nvcc
-             for sm_90a), their first version (``csrc/edt_v1.cu``, the
-             yardstick the times are compared with), the host geometry
-             library (``native/geom.cpp``, g++), and edt.cu once more with
-             ``-Xptxas -v`` for each kernel's registers, shared memory and
-             spills.
+             for sm_90a), the host geometry library (``native/geom.cpp``,
+             g++), and edt.cu once more with ``-Xptxas -v`` for each
+             kernel's registers, shared memory and spills.
 3. sqrt    - float32 ``torch.sqrt`` on the card against a float64 sqrt
              rounded once to float32, over every non-negative finite
              float32: ``ops.edt.sqrt_rn`` relies on their being equal.
 4. kernels - holds each EDT kernel bit-equal to its plain PyTorch version
-             on the card and times kernel, first version and plain version
-             (device time only: the launches are queued behind a device
-             sleep, so the host's launch time is not counted) at three
+             on the card and times kernel and plain version (device time
+             only: the launches are queued behind a device sleep, so the
+             host's launch time is not counted) at three
              shapes: the detector's [16, 416, 416] on seeded masks of swept
              density, a map [1, 2048, 2048], and the slice's own DT-Edge
              masks of the synthetic map below (with K2's time per tile);
@@ -35,6 +33,16 @@ Phases, each printing one JSON line (warnings go to stderr):
              under ``torch.profiler``; per map, the wall time, the device's
              busy time and idle share, the device ops, and the device time
              by kind of kernel and of the costliest kernels.
+7. dual    - the reference's default path ``detect_dual``: YOLO11x-OBB at
+             128/30 and 416/100 from the committed int8 checkpoints, 3
+             channels, consensus fusion, on the same map (121 + 16 tiles).
+             Both scales must give sane rows (launching no EDT kernel), the
+             rows must agree with the same detector on the CPU on the map's
+             640x640 corner, the xlsx is written, one metrics-mode map is
+             scored against the map's own rectangles (the metric block,
+             finite and in [0, 1]), and the seconds per map are timed; with
+             ``--profile MAPS`` it is profiled as the slice is
+             (``dual_profile``).
 
 Then the kernel summary line (the slice-mask times), the card's name and
 power limit again, and last ``{"ok": true, "device": ...}``. Any failure
@@ -62,6 +70,10 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CKPT = os.path.join(REPO, "assets", "bench_ckpts", "train416_4ch.ckpt")
+# the detect_dual scales: (tile size, overlap, checkpoint)
+DUAL = tuple((ts, ov, os.path.join(REPO, "assets", "bench_ckpts",
+                                   f"train{ts}_x.ckpt"))
+             for ts, ov in ((128, 30), (416, 100)))
 CSRC = os.path.join(REPO, "oriented_object_detection_tpu_torch", "csrc")
 KERNELS = ("edt_pass1_columns", "edt_pass2_rows")
 # shapes that cut K1's 32-column strips and 32-row segments (4097 rows
@@ -145,9 +157,12 @@ def edge_masks(rng, shape) -> np.ndarray:
 
 
 def synthetic_map(seed: int, H: int = 1024, W: int = 1024,
-                  n_obj: int = 40, n_lines: int = 12) -> np.ndarray:
+                  n_obj: int = 40, n_lines: int = 12) -> tuple:
     """Seeded BGR uint8 map from numpy alone: a noisy light background,
-    thin dark lines and filled rotated rectangles in the palette."""
+    thin dark lines and filled rotated rectangles in the palette. Returns
+    the map and its rectangles as ground truth [n_obj, 9] (palette class,
+    then the four corners in pixels, in ``tools/train_synthetic.py``'s
+    order)."""
     rng = np.random.RandomState(seed)
     img = (230 - rng.randint(0, 40, (H, W, 3))).astype(np.int16)
     yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
@@ -159,15 +174,22 @@ def synthetic_map(seed: int, H: int = 1024, W: int = 1024,
                     0.0, 1.0)
         d2 = (xx - x0 - t * dx) ** 2 + (yy - y0 - t * dy) ** 2
         img[d2 <= 1.0] = 60
+    boxes = []
     for _ in range(n_obj):
-        color = PALETTE[rng.randint(0, len(PALETTE))]
+        cls = rng.randint(0, len(PALETTE))
         cx, cy = rng.uniform(30, W - 30), rng.uniform(30, H - 30)
         w, h = rng.uniform(18, 40), rng.uniform(10, 22)
         th = rng.uniform(-np.pi, np.pi)
-        u = (xx - cx) * np.cos(th) + (yy - cy) * np.sin(th)
-        v = -(xx - cx) * np.sin(th) + (yy - cy) * np.cos(th)
-        img[(np.abs(u) <= w / 2) & (np.abs(v) <= h / 2)] = color
-    return np.clip(img, 0, 255).astype(np.uint8)
+        c, s = np.cos(th), np.sin(th)
+        u = (xx - cx) * c + (yy - cy) * s
+        v = -(xx - cx) * s + (yy - cy) * c
+        img[(np.abs(u) <= w / 2) & (np.abs(v) <= h / 2)] = PALETTE[cls]
+        corners = [(cx + su * w / 2 * c - sv * h / 2 * s,
+                    cy + su * w / 2 * s + sv * h / 2 * c)
+                   for su, sv in ((1, 1), (1, -1), (-1, -1), (-1, 1))]
+        boxes.append([cls] + [z for p in corners for z in p])
+    return (np.clip(img, 0, 255).astype(np.uint8),
+            np.asarray(boxes, np.float64).reshape(-1, 9))
 
 
 def pass2_operations(d0, dist) -> float:
@@ -200,22 +222,6 @@ def bound(nbytes: float, ops: float) -> dict:
     t_ops = ops / FP32_FLOPS * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-
-
-def v1_library(E):
-    """The first version of the kernels (``csrc/edt_v1.cu``), built like
-    the current ones; its K2 writes squared distances."""
-    from oriented_object_detection_tpu_torch.utils.build import (
-        build_shared_library)
-
-    lib = build_shared_library("edt_v1", [os.path.join(CSRC, "edt_v1.cu")],
-                               [E._nvcc()] + E.NVCC_FLAGS)
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.edt_v1_pass1_columns_launch.restype = ci
-    lib.edt_v1_pass1_columns_launch.argtypes = [vp, vp, ci, ci, ci, vp]
-    lib.edt_v1_pass2_rows_launch.restype = ci
-    lib.edt_v1_pass2_rows_launch.argtypes = [vp, vp, ci, ci, vp]
-    return lib
 
 
 def ptxas_report(E) -> dict:
@@ -294,8 +300,7 @@ def launch_shapes(E, H: int, W: int) -> dict:
     }
 
 
-def phase_kernels(E, torch, v1, ptxas, masks_by_label) -> dict:
-    stream = torch.cuda.current_stream().cuda_stream
+def phase_kernels(E, torch, ptxas, masks_by_label) -> dict:
     results = {}
     for label, mask in masks_by_label.items():
         B, H, W = mask.shape
@@ -303,34 +308,15 @@ def phase_kernels(E, torch, v1, ptxas, masks_by_label) -> dict:
         d0_plain = E.edt_pass1_columns_plain(mask)
         dist = E.edt_pass2_rows(d0.reshape(-1, W))
         dist_plain = E.edt_pass2_rows_plain(d0.reshape(-1, W))
-        v1_d0 = torch.empty_like(d0)
-        v1_sq = torch.empty_like(dist)
-
-        def v1_pass1():
-            E._check(v1.edt_v1_pass1_columns_launch(
-                mask.data_ptr(), v1_d0.data_ptr(), B, H, W, stream), "v1")
-
-        def v1_pass2():
-            E._check(v1.edt_v1_pass2_rows_launch(
-                d0.data_ptr(), v1_sq.data_ptr(), B * H, W, stream), "v1")
-
-        v1_pass1()
-        v1_pass2()
-        torch.cuda.synchronize()
-        if not (torch.equal(v1_d0, d0_plain) and torch.equal(
-                E.sqrt_rn(torch.clamp_max(v1_sq, E.INF * E.INF)),
-                dist_plain)):
-            raise AssertionError(f"the first version at {label} differs "
-                                 f"from the plain versions")
         row = {}
         launch = launch_shapes(E, H, W)
-        for name, got, ref, fn, first, plain, nbytes, ops in (
+        for name, got, ref, fn, plain, nbytes, ops in (
                 ("edt_pass1_columns", d0, d0_plain,
-                 lambda: E.edt_pass1_columns(mask), v1_pass1,
+                 lambda: E.edt_pass1_columns(mask),
                  lambda: E.edt_pass1_columns_plain(mask),
                  B * H * W * (1 + 4), 0.0),
                 ("edt_pass2_rows", dist, dist_plain,
-                 lambda: E.edt_pass2_rows(d0.reshape(-1, W)), v1_pass2,
+                 lambda: E.edt_pass2_rows(d0.reshape(-1, W)),
                  lambda: E.edt_pass2_rows_plain(d0.reshape(-1, W)),
                  B * H * W * (4 + 4), pass2_operations(
                      d0.reshape(-1, W), dist))):
@@ -339,14 +325,9 @@ def phase_kernels(E, torch, v1, ptxas, masks_by_label) -> dict:
                 raise AssertionError(
                     f"{name} at {label} {list(mask.shape)}: kernel differs "
                     f"from its plain version (max abs err {err})")
-            # in turns, first version and kernel, on the same inputs
-            t_v1 = [device_ms(first)]
-            t = [device_ms(fn), device_ms(fn)]
-            t_v1.append(device_ms(first))
             row[name] = {
                 "max_abs_err": err,
-                "ms": statistics.mean(t),
-                "v1_ms": statistics.mean(t_v1),
+                "ms": statistics.mean([device_ms(fn), device_ms(fn)]),
                 "plain_ms": device_ms(plain, reps=3),
                 **bound(nbytes, ops),
                 "library_ms": None,
@@ -445,10 +426,15 @@ def check_rows(rows: np.ndarray, H: int, W: int, thr: float) -> None:
 
 
 def match_rows(a: np.ndarray, b: np.ndarray, conf_min: float = 0.35,
-               px: float = 1.0, dconf: float = 0.02) -> None:
-    """Every row of ``a`` with conf >= conf_min has a row of ``b`` with the
-    same class, corners within ``px`` and conf within ``dconf``."""
-    for r in a[a[:, 9] >= conf_min]:
+               px: float = 1.0, dconf: float = 0.02,
+               skip_near: tuple = ()) -> None:
+    """Every row of ``a`` with conf >= conf_min, and not within ``dconf``
+    of a threshold in ``skip_near``, has a row of ``b`` with the same
+    class, corners within ``px`` and conf within ``dconf``."""
+    sel = a[:, 9] >= conf_min
+    for t in skip_near:
+        sel &= np.abs(a[:, 9] - t) > dconf
+    for r in a[sel]:
         same = b[b[:, 8] == r[8]]
         close = (np.abs(same[:, :8] - r[:8]).max(1) <= px) & (
             np.abs(same[:, 9] - r[9]) <= dconf)
@@ -456,15 +442,41 @@ def match_rows(a: np.ndarray, b: np.ndarray, conf_min: float = 0.35,
             raise AssertionError(f"no partner for detection {r.tolist()}")
 
 
-def phase_slice(torch, E, img) -> tuple:
-    from oriented_object_detection_tpu_torch.infer.pipeline import (
-        detector_from_checkpoint)
-    from oriented_object_detection_tpu_torch.ops import dtedge as DT
-    from oriented_object_detection_tpu_torch.ops import tiling as T
+def check_xlsx(rows: np.ndarray) -> None:
+    """The 11-column sheet of ``rows`` holds a header and every row."""
     from oriented_object_detection_tpu_torch.utils.xlsx import export_xlsx
 
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "map.xlsx")
+        export_xlsx(path, rows)
+        with zipfile.ZipFile(path) as z:
+            sheet = z.read("xl/worksheets/sheet1.xml").decode()
+    if sheet.count("<row ") != len(rows) + 1:
+        raise AssertionError("xlsx does not hold every row")
+
+
+def seconds_per_map(torch, det, img, maps: int = 5) -> list:
+    """Wall seconds of ``maps`` warm ``detect_image`` calls, each ended by a
+    device synchronize, after one call to warm up."""
+    det.detect_image(img)
+    times = []
+    for _ in range(maps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        det.detect_image(img)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return times
+
+
+def phase_slice(torch, E, img) -> tuple:
+    from oriented_object_detection_tpu_torch.infer.pipeline import (
+        build_detector)
+    from oriented_object_detection_tpu_torch.ops import dtedge as DT
+    from oriented_object_detection_tpu_torch.ops import tiling as T
+
     H, W = img.shape[:2]
-    det = detector_from_checkpoint(CKPT)
+    det = build_detector([(416, 100, CKPT)], channels=4)
     sc = det.cfg.scales[0]
     grid = T.inference_tile_grid(H, W, sc.tile_size, sc.overlap)
 
@@ -486,27 +498,13 @@ def phase_slice(torch, E, img) -> tuple:
         raise AssertionError("DT-Edge tiles from the kernels differ from "
                              "the plain-version ones")
 
-    cpu_rows = detector_from_checkpoint(
-        CKPT, device="cpu").detect_image(img)["merged_for_pr"]
+    cpu_rows = build_detector([(416, 100, CKPT)], channels=4,
+                              device="cpu").detect_image(img)["merged_for_pr"]
     match_rows(rows, cpu_rows)
     match_rows(cpu_rows, rows)
+    check_xlsx(rows)
 
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "map.xlsx")
-        export_xlsx(path, rows)
-        with zipfile.ZipFile(path) as z:
-            sheet = z.read("xl/worksheets/sheet1.xml").decode()
-        if sheet.count("<row ") != len(rows) + 1:
-            raise AssertionError("xlsx does not hold every row")
-
-    det.detect_image(img)
-    times = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        det.detect_image(img)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
+    times = seconds_per_map(torch, det, img)
     out = {"phase": "slice", "map": [H, W], "tiles": len(grid),
            "rows": len(rows), "cpu_rows": len(cpu_rows),
            "launches": launches, "dt_edge_bit_equal": True,
@@ -514,6 +512,87 @@ def phase_slice(torch, E, img) -> tuple:
            "seconds_per_map_all": times}
     emit(out)
     return det, out
+
+
+def phase_dual(torch, E, img, gt) -> object:
+    """The reference's default path on the card: rows, agreement with the
+    CPU, the xlsx, one metrics-mode map and the seconds per map."""
+    from oriented_object_detection_tpu_torch.eval import metrics as M
+    from oriented_object_detection_tpu_torch.infer import fusion as F
+    from oriented_object_detection_tpu_torch.infer.pipeline import (
+        build_detector)
+    from oriented_object_detection_tpu_torch.ops import tiling as T
+
+    H, W = img.shape[:2]
+    det = build_detector(DUAL)
+    if [sc.model_scale for sc in det.cfg.scales] != ["x", "x"]:
+        raise AssertionError(f"not the x scale: {det.cfg.scales}")
+    tiles = {sc.tile_size: len(T.inference_tile_grid(H, W, sc.tile_size,
+                                                     sc.overlap))
+             for sc in det.cfg.scales}
+    for k in E.LAUNCHES:
+        E.LAUNCHES[k] = 0
+    res = det.detect_image(img)
+    torch.cuda.synchronize()
+    launches = dict(E.LAUNCHES)
+    if any(launches.values()):
+        raise AssertionError(f"the 3-channel path ran an EDT kernel: "
+                             f"{launches}")
+    if sorted(res["by_scale"]) != [128, 416]:
+        raise AssertionError(f"scales {sorted(res['by_scale'])}")
+    thr = det.cfg.conf_thr_predict
+    for rows in (*res["by_scale"].values(), res["merged_for_pr"]):
+        check_rows(rows, H, W, thr)
+    check_xlsx(res["merged_for_pr"])
+
+    # the same detector on the CPU, on a corner small enough for it; a
+    # fused row whose conf lies near a consensus threshold may be kept on
+    # one device and dropped on the other by a last-bit difference
+    corner = np.ascontiguousarray(img[:640, :640])
+    gpu = det.detect_image(corner)
+    cpu = build_detector(DUAL, device="cpu").detect_image(corner)
+    for a, b in ((gpu, cpu), (cpu, gpu)):
+        for ts in (128, 416):
+            match_rows(a["by_scale"][ts], b["by_scale"][ts])
+        match_rows(a["merged_for_pr"], b["merged_for_pr"],
+                   skip_near=(F.CONS_LOW, F.CONS_HIGH))
+
+    # one metrics-mode map against the map's own rectangles; the input
+    # folder holds an empty file of the map's name (the GT loader reads no
+    # pixels, and the card's machine has no cv2)
+    mdet = build_detector(DUAL, calculate_metrics=True)
+    mres = mdet.detect_image(img)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "map.png")
+        open(path, "wb").close()
+        block = M.run_fusion_eval(
+            {path: mres["merged_for_pr"]}, tmp, tmp,
+            iou_thr=mdet.cfg.metrics_iou,
+            dets_map={path: mres["merged_for_map"]},
+            cache=M.GTCache(loader=lambda _: gt),
+            map_min_score=mdet.cfg.map_min_score)
+    numbers = [v for v in block.values() for v in np.ravel(v)]
+    if len(block) != 8 or not all(np.isfinite(v) and 0.0 <= v <= 1.0
+                                  for v in numbers):
+        raise AssertionError(f"metric block out of range: {block}")
+
+    times = seconds_per_map(torch, det, img)
+    emit({"phase": "dual", "map": [H, W], "tiles": tiles,
+          "model_scale": "x", "edt_launches": launches,
+          "rows": {str(ts): len(r) for ts, r in res["by_scale"].items()},
+          "fused_rows": len(res["merged_for_pr"]),
+          "cpu_check": {"map": list(corner.shape[:2]),
+                        "rows": {str(ts): [len(gpu["by_scale"][ts]),
+                                           len(cpu["by_scale"][ts])]
+                                 for ts in (128, 416)},
+                        "fused_rows": [len(gpu["merged_for_pr"]),
+                                       len(cpu["merged_for_pr"])]},
+          "metrics": {"rows_for_map": len(mres["merged_for_map"]),
+                      "gt": len(gt), **{k: np.ravel(v).tolist()
+                                        for k, v in block.items()}},
+          "seconds_per_map": statistics.median(times),
+          "seconds_per_map_all": times})
+    return det
 
 
 # kinds of device work, by a substring of the kernel's name (first match)
@@ -544,7 +623,7 @@ def busy_ms(intervals) -> float:
     return total / 1e3
 
 
-def phase_profile(torch, det, img, maps: int) -> None:
+def phase_profile(torch, det, img, maps: int, phase: str) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -573,7 +652,7 @@ def phase_profile(torch, det, img, maps: int) -> None:
         by_kind[kind] = by_kind.get(kind, 0.0) + ms
         by_name[e.name] = by_name.get(e.name, 0.0) + ms
     wall_ms = statistics.median(walls) * 1e3
-    emit({"phase": "profile", "maps": maps,
+    emit({"phase": phase, "maps": maps,
           "seconds_per_map": wall_ms / 1e3, "seconds_per_map_all": walls,
           "seconds_per_map_profiled": statistics.median(walls_profiled),
           "device_busy_ms": busy / maps,
@@ -589,7 +668,8 @@ def main(argv=None) -> int:
 
     p = argparse.ArgumentParser()
     p.add_argument("--profile", type=int, default=0, metavar="MAPS",
-                   help="also profile the slice over MAPS warm maps")
+                   help="also profile the slice and the dual path over "
+                        "MAPS warm maps each")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -616,40 +696,43 @@ def main(argv=None) -> int:
         return fn(), time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:
+    with ThreadPoolExecutor(3) as pool:
         builds = {name: pool.submit(timed, fn) for name, fn in (
-            ("edt_cu", E.kernel_library), ("edt_v1_cu", lambda: v1_library(E)),
-            ("geom_cpp", native.load), ("ptxas", lambda: ptxas_report(E)))}
+            ("edt_cu", E.kernel_library), ("geom_cpp", native.load),
+            ("ptxas", lambda: ptxas_report(E)))}
         built = {name: f.result() for name, f in builds.items()}
-    v1, ptxas = built["edt_v1_cu"][0], built["ptxas"][0]
+    ptxas = built["ptxas"][0]
     emit({"phase": "build", "wall_s": time.perf_counter() - t0,
           **{f"{name}_s": sec for name, (_, sec) in built.items()},
           "ptxas": ptxas})
 
     phase_sqrt(torch)
-    img = synthetic_map(seed=0)
+    img, gt = synthetic_map(seed=0)
     rng = np.random.RandomState(0)
     smask = slice_masks(torch, PRESETS["detect_416_4ch"], img)
-    kern = phase_kernels(E, torch, v1, ptxas, {
+    kern = phase_kernels(E, torch, ptxas, {
         "path": torch.from_numpy(edge_masks(rng, (16, 416, 416))).cuda(),
         "map": torch.from_numpy(edge_masks(rng, (1, 2048, 2048))).cuda(),
         "slice": smask})
     phase_ragged(E, torch)
     det, sl = phase_slice(torch, E, img)
     if args.profile:
-        phase_profile(torch, det, img, args.profile)
+        phase_profile(torch, det, img, args.profile, "profile")
+    del det
+    dual = phase_dual(torch, E, img, gt)
+    if args.profile:
+        phase_profile(torch, dual, img, args.profile, "dual_profile")
 
-    keys = ("max_abs_err", "ms", "v1_ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms")
-    # the times are the slice-mask shape's, device only; v1_ms is the
-    # first version's, timed the same way on the same inputs
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    # the times are the slice-mask shape's, device only; the launches are
+    # the slice's (the dual path runs neither kernel)
     emit({"kernels": [
         {"name": name, "route": "cuda",
          "source": "oriented_object_detection_tpu_torch/csrc/edt.cu",
          "replaces": REPLACES[name], "launches": sl["launches"][name],
          **{k: kern["slice"][name][k] for k in keys},
-         "shape": ["slice", *smask.shape], "timing": "device_only",
-         "v1_source": "oriented_object_detection_tpu_torch/csrc/edt_v1.cu"}
+         "shape": ["slice", *smask.shape], "timing": "device_only"}
         for name in KERNELS]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,6 +1,6 @@
 """Typed configuration for the port: the DT-Edge, scale and detection knobs
-and the ``detect_416_4ch`` preset, copied from the JAX package's
-``config.py`` so that the port reads no module of it."""
+and the detection presets, copied from the JAX package's ``config.py`` so
+that the port reads no module of it."""
 
 from __future__ import annotations
 
@@ -68,9 +68,13 @@ class DetectConfig:
     scales: tuple = (ScaleConfig(128, 30), ScaleConfig(416, 100))
     channels: int = 3                    # 3 or 4 (RGB + DT-Edge)
     nc: int = 12
+    calculate_metrics: bool = False
+    conf_thr_metrics: float = 0.001
     conf_thr_predict: float = 0.25
     engine_nms_iou: float = 0.7          # in-engine rotated NMS
     merge_iou: float = 0.4               # global/per-tile merge
+    metrics_iou: float = 0.25
+    map_min_score: float = 0.001
     apply_border_filter: bool = True
     margin_128: int = 10
     margin_416: int = 20
@@ -79,8 +83,19 @@ class DetectConfig:
     dt_edge: DTEdgeConfig = field(default_factory=DTEdgeConfig)
 
 
+def _preset_detect(**kw) -> DetectConfig:
+    return dataclasses.replace(DetectConfig(), **kw)
+
+
+# the detection presets of BASELINE.json's configurations
 PRESETS = {
-    # 4-channel RGB + DT-Edge single-scale detection
-    "detect_416_4ch": dataclasses.replace(
-        DetectConfig(), scales=(ScaleConfig(416, 100),), channels=4),
+    # single-scale 3ch detection: tile 416 / overlap 100
+    "detect_416": _preset_detect(scales=(ScaleConfig(416, 100),)),
+    # single-scale small-tile detection: tile 128 / overlap 30
+    "detect_128": _preset_detect(scales=(ScaleConfig(128, 30),)),
+    # 4-channel RGB + DT-Edge single-scale
+    "detect_416_4ch": _preset_detect(
+        scales=(ScaleConfig(416, 100),), channels=4),
+    # dual-scale [128, 416] with consensus late fusion + metrics suite
+    "detect_dual": _preset_detect(calculate_metrics=True),
 }

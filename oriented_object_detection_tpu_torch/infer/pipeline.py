@@ -1,9 +1,11 @@
-"""Tiled single-scale OBB inference.
+"""Tiled multi-scale OBB inference.
 
 Per scale, on the device: gather the tile batch -> (DT-Edge if 4ch) -> /255
 -> YOLO11-OBB forward -> decode -> the engine's ProbIoU NMS -> stitch to map
 coordinates -> border filter -> Strike angles. On the host: the per-tile
-exact-IoU merge and the global merge (``native/geom.cpp``).
+exact-IoU merge, the cross-scale consensus fusion and the global merges
+(``infer/fusion.py``, ``native/geom.cpp``), then the ``{stem}_detected.jpg``
+and ``{stem}.xlsx`` outputs.
 
 Detection rows follow the reference's 11-column layout
 (x1..y4 in map pixels, cls_id, conf, angle_deg).
@@ -11,11 +13,13 @@ Detection rows follow the reference's 11-column layout
 
 from __future__ import annotations
 
-import dataclasses
+import os
+import time
+
 import numpy as np
 import torch
 
-from ..config import CLASS_NAMES, PRESETS, DetectConfig, ScaleConfig
+from ..config import CLASS_COLORS, CLASS_NAMES, DetectConfig, ScaleConfig
 from ..models import decode as D
 from ..models.fold import fold_bn_state
 from ..models.weights import (load_checkpoint, load_state,
@@ -26,9 +30,11 @@ from ..ops import geometry as G
 from ..ops import tiling as T
 from ..utils import native
 from ..utils.runtime import resolve_device
+from ..utils.xlsx import export_xlsx
+from . import fusion as F
 
 STRIKE_CLS = 1  # "Strike" (`Detect_OBB.py:45`, angle only for this class)
-DET_WIDTH = 11  # x1..y4 (8), cls, conf, angle
+DET_WIDTH = F.DET_WIDTH
 
 
 class Detections:
@@ -39,6 +45,10 @@ class Detections:
 
     def __len__(self):
         return len(self.rows)
+
+    def __iter__(self):
+        for r in self.rows:
+            yield Detections(r[None])
 
     @property
     def xyxyxyxy(self) -> np.ndarray:
@@ -63,30 +73,22 @@ class Detections:
         return CLASS_NAMES
 
 
-def merge_detections(dets: np.ndarray, iou_threshold: float) -> np.ndarray:
-    """Greedy class-aware exact-IoU merge (`Detect_OBB.py:176-200`); kept
-    rows in conf-descending order."""
-    dets = np.asarray(dets, np.float64).reshape(-1, DET_WIDTH)
-    if not len(dets):
-        return dets
-    return dets[native.greedy_nms(dets, iou_threshold)]
-
-
 class TiledDetector:
-    """Single-scale tiled detector.
+    """Tiled multi-scale detector.
 
     params_by_scale: {tile_size: flax variables {'params', 'batch_stats'}
     as numpy trees}, the JAX package's checkpoint format
-    (``models.weights.variables_from_checkpoint``). ``device=None`` runs on
-    the CUDA card; pass ``device="cpu"`` for the CPU.
+    (``models.weights.variables_from_checkpoint``); each scale's model is
+    built at its ``ScaleConfig.model_scale``. ``device=None`` runs on the
+    CUDA card; pass ``device="cpu"`` for the CPU.
     """
 
     def __init__(self, cfg: DetectConfig, params_by_scale: dict,
                  device=None):
-        if len(cfg.scales) != 1:
-            raise NotImplementedError(
-                "only single-scale detection is ported; dual-scale fusion "
-                "is not")
+        sizes = [sc.tile_size for sc in cfg.scales]
+        if len(set(sizes)) != len(sizes):
+            # models and results are keyed by tile size
+            raise ValueError(f"duplicate tile sizes in the scales: {sizes}")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.models = {}
@@ -99,6 +101,10 @@ class TiledDetector:
                               in_channels=cfg.channels, fused_bn=True)
             load_state(model, state)
             self.models[sc.tile_size] = model.to(self.device).eval()
+
+    def _conf_thr(self) -> float:
+        return (self.cfg.conf_thr_metrics if self.cfg.calculate_metrics
+                else self.cfg.conf_thr_predict)
 
     @torch.inference_mode()
     def tile_rows(self, image_bgr: np.ndarray, scale: ScaleConfig
@@ -117,7 +123,7 @@ class TiledDetector:
         out = self.models[ts](x)
         rbox, scores = D.decode_raw(out, ts)
         dets = D.postprocess_batch(
-            rbox, scores, cfg.conf_thr_predict, cfg.engine_nms_iou,
+            rbox, scores, self._conf_thr(), cfg.engine_nms_iou,
             max_det=cfg.max_det_per_tile, pre_topk=cfg.pre_topk)
         grid_t = torch.from_numpy(grid).to(self.device)
         c8g = T.stitch_to_global(dets["corners8"], grid_t[:, :2])
@@ -156,43 +162,125 @@ class TiledDetector:
                                      self.cfg.merge_iou)
 
     def detect_image(self, image_bgr: np.ndarray) -> dict:
-        """{'by_scale': {tile_size: [N, 11]}, 'merged_for_pr': [M, 11]}:
-        the scale's rows and their global merge (`Detect_OBB.py:268-345`
-        for one scale, where the consensus filter passes rows through)."""
-        sc = self.cfg.scales[0]
-        rows = self.detect_scale(image_bgr, sc)
-        merged = merge_detections(rows, self.cfg.merge_iou)
-        return {"by_scale": {sc.tile_size: rows}, "merged_for_pr": merged}
+        """Every scale, then the fusion (`Detect_OBB.py:268-345`):
+        {'by_scale': {tile_size: [N, 11]}, 'merged_for_pr': the global merge
+        of the cross-scale consensus} and, under ``calculate_metrics``,
+        'merged_for_map': the global merge of the union of the scales."""
+        by_scale = {sc.tile_size: self.detect_scale(image_bgr, sc)
+                    for sc in self.cfg.scales}
+        result = {"by_scale": by_scale}
+        if self.cfg.calculate_metrics:
+            result["merged_for_map"] = F.merge_detections(
+                np.concatenate(list(by_scale.values())), self.cfg.merge_iou)
+        result["merged_for_pr"] = F.merge_detections(
+            F.cross_scale_consensus_filter(by_scale), self.cfg.merge_iou)
+        return result
 
     def predict(self, image_bgr: np.ndarray) -> Detections:
         """``detect_image`` behind the ultralytics-Results accessors."""
         return Detections(self.detect_image(image_bgr)["merged_for_pr"])
 
 
-# what a checkpoint must record for the port's detector to run it, and why
-# anything else is refused
-_SUPPORTED = {
-    "channels": (4, "the 3-channel path is not ported yet"),
-    "tile_size": (416, "the detector runs the detect_416_4ch preset's "
-                       "416/100 scale only"),
-    "model_scale": ("n", "the x-scale checkpoints need the int8 dequant, "
-                         "which is not ported yet"),
-}
+def read_scales(triples, channels: int = 3, model_scale: str = "x"
+                ) -> tuple:
+    """(scales, params_by_scale) for ``(tile_size, overlap, checkpoint)``
+    triples, with each checkpoint's ``extra`` read as the JAX package's
+    ``cli.py detect`` reads it: a recorded ``channels`` other than
+    ``channels`` raises, a recorded ``model_scale`` wins over
+    ``model_scale``, a recorded ``tile_size`` other than the scale's warns.
+    Duplicate tile sizes and missing checkpoints raise ``ValueError``."""
+    scales, params = [], {}
+    for ts, ov, ck in triples:
+        if ts in params:
+            raise ValueError(f"duplicate tile size {ts} in the scales")
+        if ck is None or not os.path.exists(ck):
+            raise ValueError(f"checkpoint {ck} for scale {ts} does not "
+                             f"exist")
+        ckd = load_checkpoint(ck)
+        extra = ckd.get("extra", {})
+        ck_ch = extra.get("channels")
+        if ck_ch is not None and int(ck_ch) != channels:
+            raise ValueError(f"checkpoint {ck} was trained with channels="
+                             f"{ck_ch} but --channels {channels} was "
+                             f"requested")
+        msc = model_scale
+        ck_sc = extra.get("model_scale")
+        if ck_sc and ck_sc != msc:
+            print(f"[detect] scale {ts}: using the checkpoint's recorded "
+                  f"model_scale={ck_sc} (over --scale {msc})")
+            msc = ck_sc
+        ck_ts = extra.get("tile_size")
+        if ck_ts and int(ck_ts) != ts:
+            print(f"[WARN] checkpoint {ck} was trained at tile_size="
+                  f"{ck_ts}; running it at {ts} (fully convolutional, but "
+                  f"detection quality follows the training scale)")
+        params[ts] = variables_from_checkpoint(ckd)
+        scales.append(ScaleConfig(ts, ov, checkpoint=ck, model_scale=msc))
+    if not scales:
+        raise ValueError("no scale given")
+    return tuple(scales), params
 
 
-def detector_from_checkpoint(path: str, device=None) -> TiledDetector:
-    """The ``detect_416_4ch`` detector (one 416/100 scale, 4 channels) for a
-    checkpoint that records ``channels=4``, ``tile_size=416`` and
-    ``model_scale='n'`` in its ``extra``; any other checkpoint raises
-    ``ValueError``."""
-    ck = load_checkpoint(path)
-    extra = ck.get("extra", {})
-    for key, (want, why) in _SUPPORTED.items():
-        if extra.get(key) != want:
-            raise ValueError(f"checkpoint {path} records {key}="
-                             f"{extra.get(key)!r}, not {want!r}: {why}")
-    cfg = PRESETS["detect_416_4ch"]
-    sc = dataclasses.replace(cfg.scales[0], checkpoint=path, model_scale="n")
-    return TiledDetector(dataclasses.replace(cfg, scales=(sc,)),
-                         {sc.tile_size: variables_from_checkpoint(ck)},
-                         device=device)
+def build_detector(triples, channels: int = 3, model_scale: str = "x",
+                   device=None, **cfg_fields) -> TiledDetector:
+    """A detector over ``(tile_size, overlap, checkpoint)`` triples (see
+    ``read_scales``); ``cfg_fields`` set other ``DetectConfig`` fields."""
+    scales, params = read_scales(triples, channels, model_scale)
+    cfg = DetectConfig(scales=scales, channels=channels, **cfg_fields)
+    return TiledDetector(cfg, params, device=device)
+
+
+def draw_detections(image_bgr: np.ndarray, dets: np.ndarray) -> np.ndarray:
+    """Annotated copy: polylines and 'label conf' text
+    (`Detect_OBB.py:304-316`)."""
+    import cv2
+
+    out = image_bgr.copy()
+    H, W = out.shape[:2]
+    for row in dets:
+        x1, y1, x2, y2, x3, y3, x4, y4, cls_id, conf = row[:10]
+        cls_id = int(cls_id)
+        color = tuple(int(c) for c in CLASS_COLORS.get(cls_id, (0, 255, 255)))
+        label = CLASS_NAMES.get(cls_id, f"Class{cls_id}")
+        pts = np.array([[x1, y1], [x2, y2], [x3, y3], [x4, y4]], np.int32)
+        cv2.polylines(out, [pts], isClosed=True, color=color, thickness=2)
+        tx = int(max(0, min(W - 1, round(min(x1, x2, x3, x4)))))
+        ty = int(max(0, min(H - 1, round(min(y1, y2, y3, y4) - 10))))
+        cv2.putText(out, f"{label} {conf:.2f}", (tx, ty),
+                    cv2.FONT_HERSHEY_SIMPLEX, 0.5, color, 2,
+                    lineType=cv2.LINE_AA)
+    return out
+
+
+def process_image(detector: TiledDetector, image_path: str, output_dir: str,
+                  store: dict | None = None) -> dict:
+    """Detect, draw and export one image (`Detect_OBB.py:268-345`):
+    ``{stem}_detected.jpg`` and ``{stem}.xlsx`` in ``output_dir``, and the
+    rows the metrics need in ``store`` ('pr', and 'map' under
+    ``calculate_metrics``)."""
+    import cv2
+
+    t0 = time.time()
+    image = cv2.imread(image_path)
+    if image is None:
+        print(f"[Warn] Could not read image: {image_path}")
+        return {}
+
+    result = detector.detect_image(image)
+    merged = result["merged_for_pr"]
+    elapsed = time.time() - t0
+    print(f"--- {elapsed:.3f} seconds ---")
+
+    stem = os.path.splitext(os.path.basename(image_path))[0]
+    os.makedirs(output_dir, exist_ok=True)
+    cv2.imwrite(os.path.join(output_dir, f"{stem}_detected.jpg"),
+                draw_detections(image, merged))
+    export_xlsx(os.path.join(output_dir, f"{stem}.xlsx"), merged)
+
+    if store is not None:
+        store.setdefault("pr", {})[image_path] = merged
+        if "merged_for_map" in result:
+            store.setdefault("map", {})[image_path] = result[
+                "merged_for_map"]
+    result["seconds"] = elapsed
+    return result

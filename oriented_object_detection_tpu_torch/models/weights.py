@@ -17,27 +17,60 @@ import numpy as np
 import torch
 
 
-def _map_tree(fn, tree):
+def _map_tree(fn, tree, path: str = ""):
+    """Apply ``fn(path, leaf)`` to every leaf of a nested dict; ``path`` is
+    the leaf's key string as jax's ``keystr`` writes it
+    (``"['l1']['conv']['kernel']"``)."""
     if isinstance(tree, dict):
-        return {k: _map_tree(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: _map_tree(fn, v, f"{path}[{k!r}]")
+                for k, v in tree.items()}
+    return fn(path, tree)
+
+
+def _upcast_fp16(_path, a):
+    return a.astype(np.float32) \
+        if getattr(a, "dtype", None) == np.float16 else a
+
+
+def _dequantize_int8(params: dict, q_scales: dict, path: str) -> dict:
+    """Per-output-channel int8 params back to float32: each int8 leaf times
+    its ``q_scales`` vector, the fp16 rest upcast (the JAX package's
+    ``train/trainer.py::load_checkpoint``). Raises if a scale matches no
+    leaf or an int8 leaf has no scale: either would leave a kernel
+    unscaled and the forward silently wrong."""
+    used = set()
+
+    def leaf(key, a):
+        s = q_scales.get(key)
+        if s is not None:
+            used.add(key)
+            return np.asarray(a, np.float32) * s
+        if getattr(a, "dtype", None) == np.int8:
+            raise ValueError(f"{path}: int8 leaf {key} has no q_scales entry")
+        return _upcast_fp16(key, a)
+
+    out = _map_tree(leaf, params)
+    unused = sorted(set(q_scales) - used)
+    if unused:
+        raise ValueError(f"{path}: q_scales keys match no parameter: "
+                         f"{unused[:4]}")
+    return out
 
 
 def load_checkpoint(path: str) -> dict:
-    """Unpickle a checkpoint; fp16-distilled parameters come back as fp32.
-    Only load checkpoints from a trusted source: unpickling runs code."""
+    """Unpickle a checkpoint; fp16- and int8-distilled parameters come back
+    as fp32. Only load checkpoints from a trusted source: unpickling runs
+    code."""
     with open(path, "rb") as f:
         ck = pickle.load(f)
     extra = ck.get("extra", {})
-    if extra.get("distilled_int8"):
-        raise NotImplementedError(
-            f"{path}: int8-distilled checkpoints are not ported yet")
     if extra.get("distilled_fp16"):
-        up = lambda a: a.astype(np.float32) \
-            if getattr(a, "dtype", None) == np.float16 else a
-        ck["params"] = _map_tree(up, ck["params"])
+        ck["params"] = _map_tree(_upcast_fp16, ck["params"])
         if ck.get("ema_params") is not None:
-            ck["ema_params"] = _map_tree(up, ck["ema_params"])
+            ck["ema_params"] = _map_tree(_upcast_fp16, ck["ema_params"])
+    elif extra.get("distilled_int8"):
+        ck["params"] = _dequantize_int8(ck["params"], ck.pop("q_scales"),
+                                        path)
     return ck
 
 

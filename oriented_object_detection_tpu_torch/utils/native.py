@@ -2,8 +2,10 @@
 
 Compiles the repository's ``native/geom.cpp`` with ``g++`` into the port's
 own build directory at first use (nothing is written into ``native/``) and
-binds the greedy class-aware merges that the detector runs on the host.
-Raises when the library cannot be built.
+binds what the detector, the fusion and the metrics run on the host: the
+exact quad-IoU matrix, the greedy class-aware merges, the cross-scale
+consensus filter and the multi-threshold PR matching. Raises when the
+library cannot be built.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ GEOM_SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
 
 _DP = ctypes.POINTER(ctypes.c_double)
 _IP = ctypes.POINTER(ctypes.c_int)
+_UP = ctypes.POINTER(ctypes.c_ubyte)
 
 
 @functools.cache
@@ -33,7 +36,30 @@ def load() -> ctypes.CDLL:
     lib.greedy_nms_grouped.restype = ctypes.c_int
     lib.greedy_nms_grouped.argtypes = [
         _DP, _IP, ctypes.c_int, ctypes.c_double, _IP]
+    lib.quad_iou_matrix.restype = None
+    lib.quad_iou_matrix.argtypes = [_DP, ctypes.c_int, _DP, ctypes.c_int,
+                                    _DP]
+    lib.consensus_filter.restype = ctypes.c_int
+    lib.consensus_filter.argtypes = [
+        _DP, _IP, ctypes.c_int, ctypes.c_double, ctypes.c_double,
+        ctypes.c_double, _IP]
+    lib.pr_match_multi.restype = None
+    lib.pr_match_multi.argtypes = [_DP, ctypes.c_int, ctypes.c_int, _DP,
+                                   ctypes.c_int, _UP]
     return lib
+
+
+def quad_iou_matrix(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Exact pairwise IoU [n, m] of quads a [n, 8] and b [m, 8], in
+    double precision."""
+    a = np.ascontiguousarray(a, dtype=np.float64).reshape(-1, 8)
+    b = np.ascontiguousarray(b, dtype=np.float64).reshape(-1, 8)
+    out = np.empty((len(a), len(b)), dtype=np.float64)
+    if out.size:
+        load().quad_iou_matrix(a.ctypes.data_as(_DP), len(a),
+                               b.ctypes.data_as(_DP), len(b),
+                               out.ctypes.data_as(_DP))
+    return out
 
 
 def greedy_nms(dets: np.ndarray, iou_thr: float) -> np.ndarray:
@@ -61,3 +87,39 @@ def greedy_nms_grouped(dets: np.ndarray, group_ids: np.ndarray,
         d.ctypes.data_as(_DP), g.ctypes.data_as(_IP), len(d),
         float(iou_thr), keep.ctypes.data_as(_IP))
     return keep[:cnt]
+
+
+def consensus_filter(dets: np.ndarray, scale_of: np.ndarray,
+                     iou_partner: float, cons_low: float,
+                     cons_high: float) -> np.ndarray:
+    """Cross-scale consensus fusion (`Detect_OBB.py:347-423`) over the
+    CONS_LOW-prefiltered [n, 11] rows in ascending-scale blocks;
+    ``scale_of[i]`` is row i's scale index. Returns kept row indices in
+    discovery order."""
+    d = np.ascontiguousarray(dets, dtype=np.float64).reshape(-1, 11)
+    s = np.ascontiguousarray(scale_of, dtype=np.int32)
+    if s.shape != (len(d),):
+        raise ValueError(f"scale_of {s.shape} does not match {len(d)} rows")
+    keep = np.empty(len(d), dtype=np.int32)
+    cnt = load().consensus_filter(
+        d.ctypes.data_as(_DP), s.ctypes.data_as(_IP), len(d),
+        float(iou_partner), float(cons_low), float(cons_high),
+        keep.ctypes.data_as(_IP))
+    return keep[:cnt]
+
+
+def pr_match_multi(iou: np.ndarray, iou_thrs: np.ndarray) -> np.ndarray:
+    """Greedy det->GT matching at every IoU threshold at once over one
+    image's [nd, ng] IoU block (det rows conf-descending). Returns TP flags
+    [T, nd] (uint8)."""
+    m = np.ascontiguousarray(iou, dtype=np.float64)
+    if m.ndim != 2:
+        raise ValueError(f"iou must be [nd, ng], got {m.shape}")
+    nd, ng = m.shape
+    t = np.ascontiguousarray(iou_thrs, dtype=np.float64).reshape(-1)
+    out = np.zeros((len(t), nd), dtype=np.uint8)
+    if nd and ng:
+        load().pr_match_multi(m.ctypes.data_as(_DP), nd, ng,
+                              t.ctypes.data_as(_DP), len(t),
+                              out.ctypes.data_as(_UP))
+    return out

@@ -17,6 +17,9 @@ PORT_MODULES = [
     "oriented_object_detection_tpu_torch",
     "oriented_object_detection_tpu_torch.config",
     "oriented_object_detection_tpu_torch.cli",
+    "oriented_object_detection_tpu_torch.data.labels",
+    "oriented_object_detection_tpu_torch.eval.metrics",
+    "oriented_object_detection_tpu_torch.infer.fusion",
     "oriented_object_detection_tpu_torch.infer.pipeline",
     "oriented_object_detection_tpu_torch.models.decode",
     "oriented_object_detection_tpu_torch.models.fold",
@@ -44,6 +47,15 @@ def test_port_imports_no_jax_cv2_or_jax_package():
             importlib.import_module(name)
         import chip_smoke
         chip_smoke.synthetic_map(0, H=64, W=64, n_obj=2, n_lines=1)
+        import numpy as np
+        from oriented_object_detection_tpu_torch.eval import metrics
+        from oriented_object_detection_tpu_torch.infer import fusion
+        d = np.zeros((1, 11))
+        d[0, :8] = [0, 0, 9, 0, 9, 9, 0, 9]
+        d[0, 9] = 0.9
+        fusion.cross_scale_consensus_filter({{128: d, 416: d}})
+        cache = metrics.GTCache(loader=lambda _: np.zeros((0, 9)))
+        metrics.evaluate_map({{"a": d}}, ["a"], [0.5], cache)
         pkg = "oriented_object_detection_tpu"
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "flax", "cv2",
@@ -55,6 +67,39 @@ def test_port_imports_no_jax_cv2_or_jax_package():
                          text=True, timeout=300, cwd=REPO)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
+
+
+def test_cv2_is_imported_only_where_images_are_read():
+    """The card's machine has no cv2: only the functions that read or draw
+    images import it, inside their bodies."""
+    import ast
+
+    allowed = {("cli.py", "_detect"), ("data/labels.py", "load_gt_as_pixels"),
+               ("infer/pipeline.py", "draw_detections"),
+               ("infer/pipeline.py", "process_image")}
+    root = os.path.join(REPO, "oriented_object_detection_tpu_torch")
+    found = set()
+    for dirpath, _, files in os.walk(root):
+        for fname in files:
+            if not fname.endswith(".py"):
+                continue
+            path = os.path.join(dirpath, fname)
+            rel = os.path.relpath(path, root)
+            with open(path) as f:
+                tree = ast.parse(f.read())
+            parent = {c: n for n in ast.walk(tree)
+                      for c in ast.iter_child_nodes(n)}
+            for node in ast.walk(tree):
+                names = [a.name for a in node.names] if isinstance(
+                    node, ast.Import) else [node.module] if isinstance(
+                    node, ast.ImportFrom) else []
+                if not any(n and n.split(".")[0] == "cv2" for n in names):
+                    continue
+                fn = parent.get(node)
+                while fn is not None and not isinstance(fn, ast.FunctionDef):
+                    fn = parent.get(fn)
+                found.add((rel, fn.name if fn else "<module>"))
+    assert found == allowed
 
 
 def test_import_check_is_prefix_safe():
@@ -78,12 +123,12 @@ def test_default_device_without_cuda_raises(monkeypatch):
 
 def test_detector_without_cuda_raises(monkeypatch):
     from oriented_object_detection_tpu_torch.infer.pipeline import (
-        detector_from_checkpoint)
+        build_detector)
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        detector_from_checkpoint(
-            os.path.join(REPO, "assets/bench_ckpts/train416_4ch.ckpt"))
+        build_detector([(416, 100, os.path.join(
+            REPO, "assets/bench_ckpts/train416_4ch.ckpt"))], channels=4)
 
 
 @pytest.mark.parametrize("fn", ["edt_pass1_columns", "edt_pass2_rows"])
@@ -110,10 +155,20 @@ def test_chip_smoke_without_cuda_exits_nonzero():
 
 
 def test_chip_smoke_synthetic_map_is_seeded():
+    """Seeded map and ground truth; the last rectangle drawn is where its
+    ground truth says, in its class's palette color."""
     sys.path.insert(0, REPO)
     import chip_smoke
 
-    a = chip_smoke.synthetic_map(3, H=96, W=128, n_obj=4, n_lines=2)
-    b = chip_smoke.synthetic_map(3, H=96, W=128, n_obj=4, n_lines=2)
+    a, gt_a = chip_smoke.synthetic_map(3, H=96, W=128, n_obj=4, n_lines=2)
+    b, gt_b = chip_smoke.synthetic_map(3, H=96, W=128, n_obj=4, n_lines=2)
     assert a.shape == (96, 128, 3) and a.dtype == np.uint8
     np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(gt_a, gt_b)
+    assert gt_a.shape == (4, 9)
+    assert set(gt_a[:, 0]) <= set(range(len(chip_smoke.PALETTE)))
+    assert (gt_a[:, 1::2] >= 0).all() and (gt_a[:, 1::2] <= 128).all()
+    assert (gt_a[:, 2::2] >= 0).all() and (gt_a[:, 2::2] <= 96).all()
+    cx, cy = gt_a[-1, 1::2].mean(), gt_a[-1, 2::2].mean()
+    assert tuple(a[int(round(cy)), int(round(cx))]) == \
+        chip_smoke.PALETTE[int(gt_a[-1, 0])]

@@ -1,7 +1,7 @@
 """The port's 4-channel 416/100 slice (infer/pipeline.py) against the JAX
 package's ``TiledDetector`` in float32 on a 740x740 synthetic map (4 tiles)
-with the committed ``train416_4ch.ckpt``, and the port's CLI and host
-merge."""
+with the committed ``train416_4ch.ckpt``, the port's CLI, the checkpoint
+checks of ``read_scales`` and the host merge."""
 
 import dataclasses
 import os
@@ -29,6 +29,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CKPT = os.path.join(REPO, "assets", "bench_ckpts", "train416_4ch.ckpt")
 sys.path.insert(0, REPO)
 from tools.train_synthetic import gen_map  # noqa: E402
+from torch_parity import match_one_to_one  # noqa: E402
 
 cv2 = pytest.importorskip("cv2")
 
@@ -40,7 +41,7 @@ def image():
 
 @pytest.fixture(scope="module")
 def detector():
-    return P.detector_from_checkpoint(CKPT, device="cpu")
+    return P.build_detector([(416, 100, CKPT)], channels=4, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -53,30 +54,17 @@ def results(image, detector):
     return ref, detector.detect_image(image)
 
 
-def _match_one_to_one(got, ref):
-    """Pair every row with one of the other set: same class, conf within
-    1e-3, corners within 0.05 px."""
-    assert got.shape == ref.shape
-    used = np.zeros(len(ref), bool)
-    for r in got:
-        ok = (~used & (ref[:, 8] == r[8]) & (np.abs(ref[:, 9] - r[9]) <= 1e-3)
-              & (np.abs(ref[:, :8] - r[:8]).max(1) <= 0.05))
-        assert ok.any(), f"no JAX partner for {r.tolist()}"
-        used[np.flatnonzero(ok)[0]] = True
-    np.testing.assert_allclose(got[:, 10], ref[:, 10], atol=1e-2)
-
-
 def test_slice_rows_match_jax(results):
     ref, got = results
     rows = got["merged_for_pr"]
     assert len(rows) >= 10
     assert (rows[:, 9] >= PRESETS["detect_416_4ch"].conf_thr_predict).all()
-    _match_one_to_one(rows, ref["merged_for_pr"])
+    match_one_to_one(rows, ref["merged_for_pr"])
 
 
 def test_per_scale_rows_match_jax(results):
     ref, got = results
-    _match_one_to_one(got["by_scale"][416], ref["by_scale"][416])
+    match_one_to_one(got["by_scale"][416], ref["by_scale"][416])
 
 
 def test_rows_inside_map_and_strike_angles(results, image):
@@ -104,7 +92,7 @@ def test_cli_detect_writes_the_detector_rows(tmp_path, image, results):
     inp.mkdir()
     cv2.imwrite(str(inp / "map0.png"), image)
     cli.main(["detect", "--input", str(inp), "--output", str(out),
-              "--ckpt", CKPT, "--channels", "4", "--device", "cpu"])
+              "--ckpt416", CKPT, "--channels", "4", "--device", "cpu"])
     sheet = read_xlsx(str(out / "map0.xlsx"))
     rows = results[1]["merged_for_pr"]
     assert sheet[0] == ["Class", "X1", "Y1", "X2", "Y2", "X3", "Y3", "X4",
@@ -118,36 +106,53 @@ def test_cli_detect_writes_the_detector_rows(tmp_path, image, results):
 
 
 def test_cli_refuses_channel_mismatch(tmp_path):
-    """The committed 3-channel checkpoint is refused: that path is not
-    ported."""
-    with pytest.raises(SystemExit, match="channels=3, not 4"):
+    """A 3-channel checkpoint under ``--channels 4`` is refused with the JAX
+    package's message."""
+    with pytest.raises(SystemExit,
+                       match="trained with channels=3 but --channels 4"):
         cli.main(["detect", "--input", str(tmp_path), "--output",
-                  str(tmp_path / "o"), "--ckpt",
+                  str(tmp_path / "o"), "--ckpt416",
                   os.path.join(REPO, "assets", "bench_ckpts", "train416.ckpt"),
-                  "--device", "cpu"])
+                  "--channels", "4", "--device", "cpu"])
 
 
-@pytest.mark.parametrize("extra, match", [
-    ({"channels": 4, "tile_size": 416}, "model_scale=None, not 'n': .*int8"),
-    ({"channels": 4, "tile_size": 416, "model_scale": "x"},
-     "model_scale='x', not 'n': .*int8"),
-    ({"channels": 4, "tile_size": 128, "model_scale": "n"},
-     "tile_size=128, not 416"),
-    ({"tile_size": 416, "model_scale": "n"}, "channels=None, not 4"),
-])
-def test_detector_refuses_unported_checkpoints(tmp_path, extra, match):
+@pytest.mark.parametrize("extra, sizes, expect", [
+    ({"channels": 3, "model_scale": "n"}, (416,),
+     "trained with channels=3 but --channels 4"),
+    ({"channels": 4, "model_scale": "n"}, (416, 416),
+     "duplicate tile size 416"),
+    ({"tile_size": 416, "model_scale": "n"}, (416,), "n"),
+    ({"channels": 4, "tile_size": 416, "model_scale": "x"}, (416,), "x"),
+], ids=["channels_mismatch", "duplicate_tile_size", "no_channels_recorded",
+        "x_scale_recorded"])
+def test_detector_refuses_unported_checkpoints(tmp_path, extra, sizes,
+                                               expect):
+    """What ``read_scales`` reads from a checkpoint's ``extra`` under
+    ``--channels 4 --scale n``: a recorded channels count that differs, or
+    a tile size given twice, is refused; a checkpoint that records no
+    channels count runs with the one asked for; a recorded model scale
+    wins over the one asked for."""
     path = tmp_path / "model.ckpt"
     with open(path, "wb") as f:
         pickle.dump({"params": {}, "batch_stats": {}, "extra": extra}, f)
-    with pytest.raises(ValueError, match=match):
-        P.detector_from_checkpoint(str(path), device="cpu")
+    triples = [(ts, 100, str(path)) for ts in sizes]
+    if len(expect) > 1:
+        with pytest.raises(ValueError, match=expect):
+            P.read_scales(triples, channels=4, model_scale="n")
+        return
+    scales, params = P.read_scales(triples, channels=4, model_scale="n")
+    assert scales == (ScaleConfig(416, 100, checkpoint=str(path),
+                                  model_scale=expect),)
+    assert list(params) == [416]
 
 
 def test_dual_scale_is_refused():
+    """Scales are keyed by tile size: two scales of one tile size are
+    refused."""
     cfg = dataclasses.replace(PRESETS["detect_416_4ch"],
-                              scales=(ScaleConfig(128, 30),
+                              scales=(ScaleConfig(416, 30),
                                       ScaleConfig(416, 100)))
-    with pytest.raises(NotImplementedError, match="single-scale"):
+    with pytest.raises(ValueError, match="duplicate tile sizes"):
         P.TiledDetector(cfg, {}, device="cpu")
 
 
