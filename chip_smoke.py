@@ -43,18 +43,35 @@ Phases, each printing one JSON line (warnings go to stderr):
              finite and in [0, 1]), and the seconds per map are timed; with
              ``--profile MAPS`` it is profiled as the slice is
              (``dual_profile``).
+8. train   - the training path (``Train_OBB.py``'s configuration) on four
+             seeded 1024x1024 train maps (64 tiles at 416/100, labels from
+             the maps' own rectangles written with ``write_labels``) and
+             one val map (16 tiles), fed through ``TileDataset(reader=...)``
+             (the card's machine has no cv2): YOLO11x-OBB, 3 channels, tile
+             416, batch 16, warm-started from ``train416_x.ckpt``, ``fit``
+             for one epoch of 4 steps with mosaic; every loss finite and fg
+             > 0 each step, parameters, EMA and BN statistics moved; seconds
+             per step, peak device memory, the device's idle share over two
+             profiled steps; ``validate_tiles`` fitness in [0, 1]; the
+             written ``last.ckpt`` detects through ``build_detector``. Then
+             the 4-channel build of the 64 tiles (``tiles_to_4ch``: both EDT
+             kernels launched, the DT channel equal to the plain versions'),
+             2 steps of YOLO11n-OBB 4ch from ``train416_4ch.ckpt``; last one
+             n-scale step at tile 64, batch 2 from the same weights and
+             batch on the card and on the CPU, held together.
 
-Then the kernel summary line (the slice-mask times), the card's name and
-power limit again, and last ``{"ok": true, "device": ...}``. Any failure
-raises and the script exits non-zero; without a CUDA device it exits 1
-and prints no result.
+Then the kernel summary line (the slice-mask times, and each kernel's
+launches by phase), the card's name and power limit again, and last
+``{"ok": true, "device": ...}``. Any failure raises and the script exits
+non-zero; without a CUDA device it exits 1 and prints no result.
 """
 
 from __future__ import annotations
 
 import argparse
-import ctypes
+import contextlib
 import functools
+import itertools
 import json
 import os
 import re
@@ -70,6 +87,8 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CKPT = os.path.join(REPO, "assets", "bench_ckpts", "train416_4ch.ckpt")
+TRAIN_CKPT = os.path.join(REPO, "assets", "bench_ckpts", "train416_x.ckpt")
+STEP_CKPT = os.path.join(REPO, "assets", "bench_ckpts", "train128.ckpt")
 # the detect_dual scales: (tile size, overlap, checkpoint)
 DUAL = tuple((ts, ov, os.path.join(REPO, "assets", "bench_ckpts",
                                    f"train{ts}_x.ckpt"))
@@ -663,6 +682,386 @@ def phase_profile(torch, det, img, maps: int, phase: str) -> None:
                           sorted(by_name.items(), key=lambda kv: -kv[1])[:12]]})
 
 
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+TRAIN_SEEDS, VAL_SEED, STEP_SEED = (11, 12, 13, 14), 15, 16
+# the reference's training configuration (`Train_OBB.py:19-42`) on
+# 1024x1024 maps: YOLO11x-OBB, tile 416, overlap 100, batch 16
+TRAIN = {"tile_size": 416, "overlap": 100, "batch": 16, "scale": "x",
+         "map_size": 1024, "ckpt": TRAIN_CKPT}
+# the card's n-scale step against the CPU's (tile 64, batch 2, float32, TF32
+# off): the loss components and the BN statistics within 1e-4 relative, the
+# parameters after the step within 1e-3 of each leaf's largest value
+STEP_RTOL = {"loss": 1e-4, "batch_stats": 1e-4, "params": 1e-3}
+
+
+def map_tiles(seed: int, ts: int, ov: int, H: int = 1024, W: int = 1024):
+    """BGR tiles [T, ts, ts, 3] of one synthetic map on the detector's grid
+    (edge tiles padded with 114) and their normalized labels from the map's
+    rectangles (`Train_OBB.py:93-108` assignment)."""
+    import torch
+
+    from oriented_object_detection_tpu_torch.ops import tiling as T
+
+    img, gt = synthetic_map(seed, H=H, W=W)
+    grid = T.inference_tile_grid(H, W, ts, ov)
+    tiles = T.extract_tiles(torch.from_numpy(img), grid, ts).numpy()
+    return tiles, T.assign_labels_to_tiles(gt, grid[:, :2], ts)
+
+
+def write_split(tmp: str, split: str, seeds, ts: int, ov: int,
+                size: int = 1024) -> tuple:
+    """The label files (``write_labels``) and the list file of the maps'
+    tiles in the layout of `data/dataset.py`. Returns (list file, {image path:
+    RGB tile} for ``TileDataset(reader=...)``, the BGR tiles)."""
+    from oriented_object_detection_tpu_torch.data import labels as L
+
+    for d in ("images", "labels"):
+        os.makedirs(f"{tmp}/{d}/{split}", exist_ok=True)
+    pixels, bgr = {}, []
+    for seed in seeds:
+        tiles, labels = map_tiles(seed, ts, ov, size, size)
+        for i, (tile, lab) in enumerate(zip(tiles, labels)):
+            stem = f"m{seed}_tile_{i}"
+            L.write_labels(f"{tmp}/labels/{split}/{stem}.txt", lab)
+            pixels[f"{tmp}/images/{split}/{stem}.jpg"] = \
+                np.ascontiguousarray(tile[..., ::-1])
+        bgr.append(tiles)
+    lst = f"{tmp}/{split}.txt"
+    with open(lst, "w") as f:
+        f.write("\n".join(pixels) + "\n")
+    return lst, pixels, np.concatenate(bgr)
+
+
+@contextlib.contextmanager
+def step_recorder(torch, TR):
+    """Wraps ``trainer.train_step``, which ``fit`` calls, to keep each
+    step's wall seconds (device synchronized at both ends) and metrics."""
+    steps, inner = [], TR.train_step
+
+    def recorded(state, batch, cfg):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = inner(state, batch, cfg)
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t0,
+                      dict(zip(TR.METRIC_KEYS, m.tolist()))))
+        return m
+
+    TR.train_step = recorded
+    try:
+        yield steps
+    finally:
+        TR.train_step = inner
+
+
+def check_steps(steps, n: int, label: str) -> None:
+    if len(steps) != n:
+        raise AssertionError(f"{label}: {len(steps)} steps, not {n}")
+    for sec, m in steps:
+        if not all(np.isfinite(v) for v in m.values()):
+            raise AssertionError(f"{label}: non-finite loss {m}")
+        if m["fg_count"] <= 0:
+            raise AssertionError(f"{label}: a step with no fg anchor {m}")
+
+
+def moved(before: dict, after: dict) -> tuple:
+    """(entries that changed, entries) between two {name: tensor} dicts."""
+    n = sum(not bool((before[k] == after[k]).all()) for k in before)
+    return n, len(before)
+
+
+def profile_steps(torch, TR, state, batches, cfg) -> dict:
+    """Two train steps under the profiler: wall seconds, the device's busy
+    time and idle share, and its time by kind of kernel, per step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches:
+            TR.train_step(state, b, cfg)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not ops:
+        raise AssertionError("the profiler recorded no device work")
+    busy = busy_ms((e.time_range.start, e.time_range.end) for e in ops)
+    by_kind: dict = {}
+    by_name: dict = {}
+    for e in ops:
+        ms = (e.time_range.end - e.time_range.start) / 1e3 / len(batches)
+        kind = kernel_kind(e.name)
+        by_kind[kind] = by_kind.get(kind, 0.0) + ms
+        by_name[e.name] = by_name.get(e.name, 0.0) + ms
+    return {"steps": len(batches), "seconds_per_step_profiled":
+            wall_ms / 1e3, "device_busy_ms": busy / len(batches),
+            "idle_share": 1.0 - busy / len(batches) / wall_ms,
+            "device_ops_per_step": len(ops) / len(batches),
+            "device_ms_by_kind": by_kind,
+            "top_kernels": [{"name": k[:90], "device_ms": v} for k, v in
+                            sorted(by_name.items(),
+                                   key=lambda kv: -kv[1])[:10]]}
+
+
+def step_flops(torch, TR, state, batch, cfg) -> float:
+    """Float operations of one train step (forward and backward) as
+    ``torch.utils.flop_counter`` counts them: convolutions and matmuls."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter:
+        TR.train_step(state, batch, cfg)
+    torch.cuda.synchronize()
+    return float(counter.get_total_flops())
+
+
+def wall_seconds(torch, fn) -> tuple:
+    """(result, wall seconds) of ``fn()``, the device synchronized."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def train_3ch(torch, tmp: str, smi: str) -> tuple:
+    """YOLO11x-OBB, 3 channels, 416/100, batch 16 (``TRAIN``): warm start,
+    one epoch of ``fit`` with mosaic and per-epoch validation, the moved
+    state, the checkpoint through ``build_detector``, two profiled steps.
+    Returns the phase's numbers and the train tiles (BGR)."""
+    from oriented_object_detection_tpu_torch.config import TrainConfig
+    from oriented_object_detection_tpu_torch.data.loader import TileDataset
+    from oriented_object_detection_tpu_torch.eval.val import validate_tiles
+    from oriented_object_detection_tpu_torch.infer.pipeline import (
+        build_detector)
+    from oriented_object_detection_tpu_torch.train import trainer as TR
+
+    ts, ov, bs, size = (TRAIN[k] for k in ("tile_size", "overlap", "batch",
+                                           "map_size"))
+    cfg = TrainConfig(tile_size=ts, overlap=ov, batch_size=bs,
+                      model_scale=TRAIN["scale"], channels=3, epochs=1,
+                      plots=False)
+    lst, pixels, bgr = write_split(tmp, "train", TRAIN_SEEDS, ts, ov, size)
+    vlst, vpixels, _ = write_split(tmp, "val", (VAL_SEED,), ts, ov, size)
+    train_ds = TileDataset(lst, ts, 3, reader=pixels.__getitem__)
+    val_ds = TileDataset(vlst, ts, 3, reader=vpixels.__getitem__)
+    steps_per_epoch = len(train_ds) // bs
+    state = TR.create_train_state(cfg, steps_per_epoch)
+    TR.warm_start_state(TRAIN["ckpt"], state, expect={
+        "model_scale": TRAIN["scale"], "channels": 3})
+    clone = lambda m: {k: v.detach().clone() for k, v in
+                       m.state_dict().items()}
+    before, ema_before = clone(state.model), clone(state.ema)
+    fit_warm_start = validate_tiles(state.eval_model(), val_ds, cfg)
+    fits = []
+
+    def val_fn(s):
+        fits.append(validate_tiles(s.eval_model(), val_ds, cfg))
+        return fits[-1]
+
+    rng = np.random.RandomState(cfg.seed)
+    run_dir = os.path.join(tmp, "run_x")
+    torch.cuda.reset_peak_memory_stats()
+    with step_recorder(torch, TR) as steps:
+        TR.fit(state, cfg, lambda e: train_ds.batches(bs, rng),
+               val_fn=val_fn, ckpt_dir=run_dir)
+    peak = torch.cuda.max_memory_allocated()
+    check_steps(steps, steps_per_epoch, "3ch x-scale")
+    after = clone(state.model)
+    params = {k for k, _ in state.model.named_parameters()}
+    stats = {k for k in before if k.endswith(("running_mean",
+                                              "running_var"))}
+    moved_params = moved({k: before[k] for k in params},
+                         {k: after[k] for k in params})
+    moved_stats = moved({k: before[k] for k in stats},
+                        {k: after[k] for k in stats})
+    ema_keys = {k for k in params}
+    moved_ema = moved({k: ema_before[k] for k in ema_keys},
+                      {k: v for k, v in clone(state.ema).items()
+                       if k in ema_keys})
+    if moved_params[0] < 0.9 * moved_params[1] or moved_stats[0] != \
+            moved_stats[1] or moved_ema[0] < 0.9 * moved_ema[1]:
+        raise AssertionError(f"state did not move: params {moved_params}, "
+                             f"BN statistics {moved_stats}, EMA {moved_ema}")
+    if len(fits) != 1 or not 0.0 <= fits[0] <= 1.0:
+        raise AssertionError(f"validation fitness {fits}")
+
+    # the written checkpoint, read back by the detector
+    vimg, _ = synthetic_map(VAL_SEED, H=size, W=size)
+    det = build_detector([(ts, ov, os.path.join(run_dir, "last.ckpt"))])
+    rows = det.detect_image(vimg)["merged_for_pr"]
+    check_rows(rows, *vimg.shape[:2], det.cfg.conf_thr_predict)
+    del det
+
+    # the layers apart: a loader batch, validation, a checkpoint write, the
+    # step's operations, then two profiled steps
+    it = train_ds.batches(bs, np.random.RandomState(1))
+    loader_s = [wall_seconds(torch, lambda: next(it))[1] for _ in range(3)]
+    extra = {"loader_seconds_per_batch": statistics.median(loader_s),
+             "validate_seconds": wall_seconds(torch, lambda: validate_tiles(
+                 state.eval_model(), val_ds, cfg))[1],
+             "checkpoint_write_seconds": wall_seconds(
+                 torch, lambda: TR.save_checkpoint(
+                     os.path.join(tmp, "ck.ckpt"), state))[1]}
+    batches = list(itertools.islice(train_ds.batches(
+        bs, np.random.RandomState(2)), 3))
+    flops = step_flops(torch, TR, state, batches[0], cfg)
+    prof = profile_steps(torch, TR, state, batches[1:], cfg)
+    warm = [sec for sec, _ in steps[1:]]
+    return {"model_scale": cfg.model_scale, "channels": 3, "tile_size": ts,
+            "overlap": ov, "batch": bs, "train_tiles": len(train_ds),
+            "val_tiles": len(val_ds), "steps": len(steps),
+            "seconds_per_step": statistics.median(warm),
+            "seconds_per_step_all": [sec for sec, _ in steps],
+            "losses": [m for _, m in steps],
+            "peak_memory_gib": peak / 2 ** 30, "nvidia_smi": smi,
+            "moved": {"params": moved_params, "bn_statistics": moved_stats,
+                      "ema": moved_ema},
+            "fitness_warm_start": fit_warm_start, "fitness": fits[0],
+            "detect_rows": len(rows), **extra, "step_tflop": flops / 1e12,
+            "conv_tflops_per_s": flops / 1e9 / prof["device_ms_by_kind"].get(
+                "conv_matmul", float("nan")),
+            "profile": prof,
+            # the profiler's own cost slows each launch; the busy time over
+            # the unprofiled step is the idle share the step really has
+            "idle_share_unprofiled": 1.0 - prof["device_busy_ms"] / (
+                statistics.median(warm) * 1e3)}, bgr
+
+
+def train_4ch(torch, E, tmp: str, bgr: np.ndarray) -> dict:
+    """The 4-channel build of the train tiles on the card (both EDT kernels,
+    the DT channel against the plain versions'), then 2 steps of
+    YOLO11n-OBB 4ch from ``train416_4ch.ckpt``."""
+    from oriented_object_detection_tpu_torch.config import (DTEdgeConfig,
+                                                            TrainConfig)
+    from oriented_object_detection_tpu_torch.data import dataset as DS
+    from oriented_object_detection_tpu_torch.data.loader import TileDataset
+    from oriented_object_detection_tpu_torch.ops import dtedge as DT
+    from oriented_object_detection_tpu_torch.train import trainer as TR
+
+    ts, bs = TRAIN["tile_size"], TRAIN["batch"]
+    tiles = torch.from_numpy(bgr).cuda()
+    for k in E.LAUNCHES:
+        E.LAUNCHES[k] = 0
+    four = torch.cat([DS.tiles_to_4ch(tiles[i:i + bs])
+                      for i in range(0, len(tiles), bs)])
+    torch.cuda.synchronize()
+    launches = dict(E.LAUNCHES)
+    if not all(n > 0 for n in launches.values()):
+        raise AssertionError(f"a kernel of the 4ch build never ran: "
+                             f"{launches}")
+    plain = torch.cat([DT.dt_edge_channel(tiles[i:i + bs], DTEdgeConfig(),
+                                          edt=E.edt_l2_plain)
+                       for i in range(0, len(tiles), bs)])
+    if not torch.equal(four[:, 3], plain):
+        raise AssertionError("the 4ch build's DT channel differs from the "
+                             "plain versions'")
+    if not torch.equal(four[:, :3], tiles.flip(-1).permute(0, 3, 1, 2)):
+        raise AssertionError("the 4ch build's RGB pages are not the tiles'")
+
+    hwc = four.permute(0, 2, 3, 1).cpu().numpy()
+    with open(f"{tmp}/train.txt") as f:
+        paths = f.read().split()
+    pixels = dict(zip(paths, hwc))
+    ds = TileDataset(f"{tmp}/train.txt", ts, 4, reader=pixels.__getitem__)
+    cfg = TrainConfig(tile_size=ts, batch_size=bs, model_scale="n",
+                      channels=4, epochs=1, plots=False)
+    state = TR.create_train_state(cfg, len(ds) // bs)
+    TR.warm_start_state(CKPT, state, expect={"model_scale": "n",
+                                             "channels": 4})
+    rng = np.random.RandomState(cfg.seed)
+    with step_recorder(torch, TR) as steps:
+        TR.fit(state, cfg, lambda e: itertools.islice(ds.batches(bs, rng),
+                                                      2),
+               ckpt_dir=os.path.join(tmp, "run_4ch"))
+    check_steps(steps, 2, "4ch n-scale")
+    return {"tiles": len(four), "launches": launches, "dt_bit_equal": True,
+            "model_scale": "n", "channels": 4, "tile_size": ts, "batch": bs,
+            "steps": len(steps),
+            "seconds_per_step_all": [sec for sec, _ in steps],
+            "losses": [m for _, m in steps]}
+
+
+def max_rel(a: np.ndarray, b: np.ndarray) -> float:
+    return float(np.abs(a - b).max() / max(np.abs(a).max(), 1e-6))
+
+
+def tree_leaves(tree: dict, prefix: str = ""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from tree_leaves(v, f"{prefix}{k}/")
+        else:
+            yield prefix + k, np.asarray(v)
+
+
+def train_card_vs_cpu(torch, tmp: str, card: str = "cuda") -> dict:
+    """The loader's batches and one n-scale step at tile 64, batch 2 from
+    ``train128.ckpt`` on the same batch, on the card and on the CPU."""
+    from oriented_object_detection_tpu_torch.config import TrainConfig
+    from oriented_object_detection_tpu_torch.data.loader import TileDataset
+    from oriented_object_detection_tpu_torch.models.weights import (
+        load_state, torch_state_from_jax, variables_from_checkpoint)
+    from oriented_object_detection_tpu_torch.train import trainer as TR
+
+    lst, pixels, _ = write_split(f"{tmp}/step", "train", (STEP_SEED,), 64,
+                                 0, size=256)
+    # the loader's batches for one seed, composed on each device, are equal
+    # bit for bit (mosaic, warp, flip and HSV)
+    on_card, on_cpu = (list(itertools.islice(TileDataset(
+        lst, 64, 3, device=dev, reader=pixels.__getitem__).batches(
+        2, np.random.RandomState(0)), 3)) for dev in (card, "cpu"))
+    for a, b in zip(on_card, on_cpu):
+        for k in a:
+            if not torch.equal(a[k].cpu(), b[k]):
+                raise AssertionError(f"loader batch {k} differs between "
+                                     f"the card and the CPU")
+    batch = on_cpu[0]
+    if not batch["gt_mask"].any():
+        raise AssertionError("the step batch has no box")
+    cfg = TrainConfig(tile_size=64, batch_size=2, model_scale="n", epochs=3)
+    weights = torch_state_from_jax(variables_from_checkpoint(STEP_CKPT))
+    out = {}
+    for dev in (card, "cpu"):
+        st = TR.create_train_state(cfg, 4, device=dev)
+        load_state(st.model, weights)
+        st.reset_ema()
+        m = TR.train_step(st, {k: v.to(dev) for k, v in batch.items()}, cfg)
+        out[dev] = (m.cpu().numpy(), TR.checkpoint_payload(st))
+    (mc, pc), (mh, ph) = out[card], out["cpu"]
+    worst = {"loss": max_rel(mh[:4], mc[:4])}
+    for key in ("params", "batch_stats"):
+        cpu = dict(tree_leaves(ph[key]))
+        worst[key] = max(max_rel(cpu[k], v) for k, v in
+                         tree_leaves(pc[key]))
+    if mc[4] != mh[4] or mc[4] <= 0:
+        raise AssertionError(f"fg count card {mc[4]} cpu {mh[4]}")
+    for key, tol in STEP_RTOL.items():
+        if not worst[key] <= tol:
+            raise AssertionError(f"card and CPU steps differ: {key} "
+                                 f"{worst[key]} > {tol}")
+    return {"model_scale": "n", "tile_size": 64, "batch": 2,
+            "loader_batches_bit_equal": len(on_cpu),
+            "metrics_card": dict(zip(TR.METRIC_KEYS, mc.tolist())),
+            "metrics_cpu": dict(zip(TR.METRIC_KEYS, mh.tolist())),
+            "max_rel": worst, "tolerance": STEP_RTOL}
+
+
+def phase_train(torch, E, smi: str) -> dict:
+    with tempfile.TemporaryDirectory() as tmp:
+        x3, bgr = train_3ch(torch, tmp, smi)
+        emit({"phase": "train", "part": "3ch", **x3})
+        c4 = train_4ch(torch, E, tmp, bgr)
+        emit({"phase": "train", "part": "4ch", **c4})
+        step = train_card_vs_cpu(torch, tmp)
+        emit({"phase": "train", "part": "card_vs_cpu", **step})
+    return {"launches": c4["launches"],
+            "seconds_per_step": x3["seconds_per_step"]}
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -722,15 +1121,20 @@ def main(argv=None) -> int:
     dual = phase_dual(torch, E, img, gt)
     if args.profile:
         phase_profile(torch, dual, img, args.profile, "dual_profile")
+    del dual
+    train = phase_train(torch, E, smi)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     # the times are the slice-mask shape's, device only; the launches are
-    # the slice's (the dual path runs neither kernel)
+    # the slice's, and by path: the dual path runs neither kernel, the
+    # training path's 4-channel build runs both
     emit({"kernels": [
         {"name": name, "route": "cuda",
          "source": "oriented_object_detection_tpu_torch/csrc/edt.cu",
          "replaces": REPLACES[name], "launches": sl["launches"][name],
+         "launches_by_path": {"slice": sl["launches"][name], "dual": 0,
+                              "train_4ch_build": train["launches"][name]},
          **{k: kern["slice"][name][k] for k in keys},
          "shape": ["slice", *smask.shape], "timing": "device_only"}
         for name in KERNELS]})

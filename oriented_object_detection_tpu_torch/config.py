@@ -1,6 +1,6 @@
-"""Typed configuration for the port: the DT-Edge, scale and detection knobs
-and the detection presets, copied from the JAX package's ``config.py`` so
-that the port reads no module of it."""
+"""Typed configuration for the port: the DT-Edge, scale, detection and
+training knobs and the presets, copied from the JAX package's ``config.py``
+so that the port reads no module of it."""
 
 from __future__ import annotations
 
@@ -83,11 +83,64 @@ class DetectConfig:
     dt_edge: DTEdgeConfig = field(default_factory=DTEdgeConfig)
 
 
+@dataclass(frozen=True)
+class TrainConfig:
+    """Training and dataset-build configuration (`Train_OBB.py:19-42`). The
+    port trains in float32 (TF32 off), so it has no ``compute_dtype``, and
+    on one device, so it has no mesh axis."""
+
+    channels: int = 3
+    apply_filtered_rgb: bool = False
+    need_cropping: bool = True
+    need_augmentation: bool = True
+    tile_size: int = 416
+    overlap: int = 100
+    epochs: int = 150
+    batch_size: int = 16
+    object_boundary_threshold: float = 0.1
+    class_balance_threshold: int = 800
+    augmentation_repeats: int = 2
+    r_target: int = 4                    # empty:positive tile budget
+    model_scale: str = "x"
+    nc: int = 12
+    # optimizer (per-size hyperparameters, `Train_OBB.py:796-841`)
+    lr0: float = 0.003
+    lrf: float = 0.05
+    weight_decay: float = 0.001
+    momentum: float = 0.937
+    warmup_epochs: float = 3.0
+    warmup_momentum: float = 0.8       # momentum ramp start (-> momentum)
+    warmup_bias_lr: float = 0.1        # bias-group lr ramp start (-> lr0)
+    # passed by the reference (`Train_OBB.py:809,834`), inert for OBB
+    dropout: float = 0.0
+    patience: int = 50
+    # the engine's dataloader knobs (`Train_OBB.py:30-32`), kept for the
+    # config surface: the tile cache on the device takes their place
+    workers: int = 2
+    cache: bool = False
+    rect: bool = False
+    # mosaic off for the final N epochs (the engine's close_mosaic=10)
+    close_mosaic: int = 10
+    ema_decay: float = 0.9999
+    ema_tau: float = 2000.0
+    # loss gains (engine defaults)
+    box_gain: float = 7.5
+    cls_gain: float = 0.5
+    dfl_gain: float = 1.5
+    seed: int = 42
+    # run-dir artifacts: results.csv/png, args.yaml, train_batch0.jpg
+    # (the reference trains with plots=True, `Train_OBB.py:811,839`)
+    plots: bool = True
+    # optimizer steps per group; the steps run one after another, so the
+    # result is that of single steps
+    steps_per_dispatch: int = 1
+
+
 def _preset_detect(**kw) -> DetectConfig:
     return dataclasses.replace(DetectConfig(), **kw)
 
 
-# the detection presets of BASELINE.json's configurations
+# the presets of BASELINE.json's configurations
 PRESETS = {
     # single-scale 3ch detection: tile 416 / overlap 100
     "detect_416": _preset_detect(scales=(ScaleConfig(416, 100),)),
@@ -98,4 +151,6 @@ PRESETS = {
         scales=(ScaleConfig(416, 100),), channels=4),
     # dual-scale [128, 416] with consensus late fusion + metrics suite
     "detect_dual": _preset_detect(calculate_metrics=True),
+    # Train_OBB end to end: YOLO11x-OBB, 3 channels, 416/100, batch 16
+    "train_416": TrainConfig(),
 }

@@ -1,6 +1,8 @@
-"""YOLO-OBB label files for evaluation (host side): the 9-column reader,
-the label lookup beside an image and the ground truth in pixels
-(`Train_OBB.py:228-261`, `Detect_OBB.py:425-454`)."""
+"""YOLO-OBB label files (host side): the 9-column reader and writer, the
+label lookup beside an image and the ground truth in pixels
+(`Train_OBB.py:228-261`, `Detect_OBB.py:425-454`). The writer's text is the
+JAX package's byte for byte: space-separated rows, no header, integers
+without a decimal point, other values as ``repr(float)``."""
 
 from __future__ import annotations
 
@@ -48,6 +50,20 @@ def read_labels(label_path: str, img_w: int | None = None,
         out[:, 1::2] *= float(img_w)
         out[:, 2::2] *= float(img_h)
     return out
+
+
+def write_labels(label_path: str, labels: np.ndarray) -> None:
+    """Space-separated rows, no header; an empty array writes an empty file
+    (the positive/empty tile convention, `Train_OBB.py:216-218, 417-420`)."""
+    with open(label_path, "w") as f:
+        for row in np.asarray(labels).reshape(-1, 9):
+            f.write(" ".join(_fmt(v) for v in row) + "\n")
+
+
+def _fmt(v: float) -> str:
+    if float(v).is_integer():
+        return str(int(v))
+    return repr(float(v))
 
 
 def label_path_for_image(image_path: str) -> str | None:

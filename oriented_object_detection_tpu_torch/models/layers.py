@@ -3,9 +3,11 @@ names, so that a state dict has ultralytics' keys: ConvBN (ultralytics
 ``Conv``), Bottleneck, C3k, C3k2, SPPF, Attention, PSABlock, C2PSA and the
 nearest-neighbour 2x upsample.
 
-BatchNorm uses eps 1e-3 like ultralytics. A ConvBN whose ``fused`` flag is
-set runs the fused inference graph, conv + BN bias + SiLU, which is right
-once ``fold.fold_bn_state`` has folded the BatchNorm into the conv weights.
+BatchNorm uses eps 1e-3 like ultralytics. In training mode it follows
+flax's ``nn.BatchNorm`` (the JAX package's), not ``nn.BatchNorm2d``'s
+update: see ``BatchNorm``. A ConvBN whose ``fused`` flag is set runs the
+fused inference graph, conv + BN bias + SiLU, which is right once
+``fold.fold_bn_state`` has folded the BatchNorm into the conv weights.
 """
 
 from __future__ import annotations
@@ -15,6 +17,35 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 BN_EPS = 1e-3
+BN_MOMENTUM = 0.97  # flax's: running = 0.97 * running + 0.03 * batch
+
+
+class BatchNorm(nn.BatchNorm2d):
+    """BatchNorm2d with flax's training semantics. The batch statistics are
+    flax's fast form, mean and E[x^2] - mean^2 clipped at 0 (the biased
+    variance), and the output is (x - mean) * (rsqrt(var + eps) * weight) +
+    bias. The running statistics move by 0.03 toward the batch mean and the
+    *biased* batch variance; ``nn.BatchNorm2d`` would use the unbiased one,
+    n/(n-1) times larger (twice as large on a 1x1 map at batch 2).
+    ``num_batches_tracked`` is not used. Eval mode is ``nn.BatchNorm2d``'s:
+    the running statistics."""
+
+    def __init__(self, c: int):
+        super().__init__(c, eps=BN_EPS, momentum=1.0 - BN_MOMENTUM)
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        mean = x.mean(dim=(0, 2, 3))
+        var = torch.clamp_min((x * x).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+        with torch.no_grad():
+            self.running_mean.mul_(BN_MOMENTUM).add_(
+                mean.detach() * (1.0 - BN_MOMENTUM))
+            self.running_var.mul_(BN_MOMENTUM).add_(
+                var.detach() * (1.0 - BN_MOMENTUM))
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean[:, None, None]) * mul[:, None, None] \
+            + self.bias[:, None, None]
 
 
 class ConvBN(nn.Module):
@@ -24,7 +55,7 @@ class ConvBN(nn.Module):
                  g: int = 1, act: bool = True):
         super().__init__()
         self.conv = nn.Conv2d(c1, c2, k, s, k // 2, groups=g, bias=False)
-        self.bn = nn.BatchNorm2d(c2, eps=BN_EPS)
+        self.bn = BatchNorm(c2)
         self.act = act
         self.fused = False
 

@@ -1,11 +1,13 @@
-"""Checkpoints: load the JAX package's pickled checkpoints with numpy alone
-and turn their flax variable trees into this package's state dicts.
+"""Checkpoints: load the JAX package's pickled checkpoints with numpy alone,
+turn their flax variable trees into this package's state dicts, and turn
+state dicts back into flax trees, so that a checkpoint the port writes is
+one the JAX package reads.
 
 A checkpoint is a pickle of {'step', 'params', 'batch_stats',
-'ema_params', 'extra'} nested dicts of numpy arrays (the JAX package's
-``train/trainer.py``). The flax paths are renamed to ultralytics keys and
-conv kernels transposed HWIO -> OIHW, as the JAX package's
-``models/weights.py`` exports them.
+'ema_params', 'opt_state', 'extra'} nested dicts of numpy arrays (the JAX
+package's ``train/trainer.py``). The flax paths are renamed to ultralytics
+keys and conv kernels transposed HWIO -> OIHW, as the JAX package's
+``models/weights.py`` exports them, and back.
 """
 
 from __future__ import annotations
@@ -138,6 +140,72 @@ def torch_state_from_jax(variables: dict) -> dict:
     walk(dict(variables["params"]), [])
     walk(dict(variables.get("batch_stats", {})), [])
     return out
+
+
+_BN_LEAVES = {"weight": ("params", "scale"), "bias": ("params", "bias"),
+              "running_mean": ("batch_stats", "mean"),
+              "running_var": ("batch_stats", "var")}
+
+
+def _torch_key_to_flax(key: str) -> tuple[str, list[str]]:
+    """Inverse of ``_flax_path_to_torch``: an ultralytics key -> (flax
+    collection, path). Raises for a key with no flax leaf."""
+    parts = key.split(".")
+    if parts[0] != "model" or len(parts) < 3:
+        raise KeyError(f"no flax path for torch key {key}")
+    path, rest = [f"l{parts[1]}"], parts[2:-1]
+    leaf = parts[-1]
+    if parts[1] == "23":                       # the OBB head
+        branch, lvl, st = rest[0], rest[1], rest[2]
+        sub = rest[3] if len(rest) > 3 and rest[3].isdigit() else None
+        path.append(f"{branch}_{lvl}_{st}" + (f"_{sub}" if sub else ""))
+        if branch == "cv3" and sub == "0":     # the depthwise ConvBN
+            path.append("dw")
+        rest = rest[4 if sub else 3:]
+    j = 0
+    while j < len(rest):
+        if rest[j] in ("m", "ffn") and j + 1 < len(rest) \
+                and rest[j + 1].isdigit():
+            path.append(f"{rest[j]}_{rest[j + 1]}")
+            j += 2
+        else:
+            path.append(rest[j])
+            j += 1
+    if path[-1] == "bn":
+        if leaf not in _BN_LEAVES:
+            raise KeyError(f"no flax path for torch key {key}")
+        coll, name = _BN_LEAVES[leaf]
+        return coll, path + [name]
+    if leaf == "weight":
+        return "params", path + ["kernel"]
+    if leaf == "bias":
+        return "params", path + ["bias"]
+    raise KeyError(f"no flax path for torch key {key}")
+
+
+def jax_trees_from_torch_state(state: dict) -> dict:
+    """Ultralytics-keyed state dict (numpy or tensors) -> flax
+    {'params', 'batch_stats'} numpy trees, conv kernels OIHW -> HWIO;
+    BatchNorm's ``num_batches_tracked`` is dropped. Every key is checked to
+    map back to itself through ``torch_state_from_jax``'s renaming."""
+    trees: dict = {"params": {}, "batch_stats": {}}
+    for key, val in state.items():
+        if key.endswith("num_batches_tracked"):
+            continue
+        coll, path = _torch_key_to_flax(key)
+        if _flax_path_to_torch(path) != key:
+            raise KeyError(f"torch key {key} maps to {'/'.join(path)}, "
+                           f"which maps back to {_flax_path_to_torch(path)}")
+        a = val.detach().cpu().numpy() if isinstance(val, torch.Tensor) \
+            else np.asarray(val)
+        a = np.ascontiguousarray(a.astype(np.float32).transpose(2, 3, 1, 0)
+                                 if path[-1] == "kernel" else
+                                 a.astype(np.float32))
+        node = trees[coll]
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = a
+    return trees
 
 
 def load_state(model: torch.nn.Module, state: dict) -> None:

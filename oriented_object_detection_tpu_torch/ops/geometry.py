@@ -1,11 +1,12 @@
 """Oriented-box geometry on tensors: corner/xywhr conversion, centers, the
 Strike angle and ProbIoU (the subset of the JAX package's
-``ops/geometry.py`` that the detector's device path runs)."""
+``ops/geometry.py`` that the detector, the loss and the loader run)."""
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 
@@ -36,6 +37,19 @@ def corners8_to_xywhr(c8: torch.Tensor) -> torch.Tensor:
     h = torch.linalg.vector_norm(e_h, dim=-1)
     theta = torch.atan2(e_w[..., 1], e_w[..., 0])
     return torch.stack([c[..., 0], c[..., 1], w, h, theta], dim=-1)
+
+
+def corners8_to_xywhr_np(c8) -> np.ndarray:
+    """Numpy float64 twin of `corners8_to_xywhr` for the loader's host label
+    math: [N, 8] -> [N, 5]."""
+    pts = np.asarray(c8, np.float64).reshape(-1, 4, 2)
+    c = pts.mean(axis=1)
+    e_w = pts[:, 0] - pts[:, 3]
+    e_h = pts[:, 0] - pts[:, 1]
+    w = np.linalg.norm(e_w, axis=-1)
+    h = np.linalg.norm(e_h, axis=-1)
+    theta = np.arctan2(e_w[:, 1], e_w[:, 0])
+    return np.stack([c[:, 0], c[:, 1], w, h, theta], axis=-1)
 
 
 def box_center(c8: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,20 @@
-"""Row comparison shared by the port's parity tests."""
+"""Helpers shared by the port's parity tests: the row comparison, and a
+fixture that runs a module's PyTorch work on one intra-op thread."""
 
 import numpy as np
+import pytest
+import torch
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for the module: parallel test workers (six in
+    the full run) share the cores, and their spinning thread pools slow
+    each other down many times over (a 1 s CPU train step took 60 s)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def match_one_to_one(got, ref, skip_near=()):
