@@ -43,7 +43,30 @@ Phases, each printing one JSON line (warnings go to stderr):
              finite and in [0, 1]), and the seconds per map are timed; with
              ``--profile MAPS`` it is profiled as the slice is
              (``dual_profile``).
-8. train   - the training path (``Train_OBB.py``'s configuration) on four
+8. batch   - multi-map detection: the 4ch slice over four seeded maps of
+             the reference's Test1/Test2 sizes and 1024x1024 twice, and
+             ``detect_dual`` over eight 1024x1024 maps, each per map
+             (``detect_image``), batched (``detect_images``) and streamed
+             (``detect_stream``, groups of two); every map's batched and
+             streamed rows pair with its per-map rows; K1 and K2 launch
+             once for the 4ch batch and once a group for the stream; per
+             mode the seconds per map, the device's idle share, peak
+             device memory and the stage totals of ``utils/profiling.py``,
+             and the host synchronizations inside the dispatch.
+9. crop    - ``predict_crop`` of the 4ch slice's detector on a 500x700 crop
+             with the percentile and the Otsu binarization: K1 and K2
+             launch once each, at the crop's shape; the rows pair with the
+             CPU's; Otsu's edge mask on the card equals the CPU's.
+10. convert - ``train416_4ch.ckpt`` written as a fake ultralytics ``.pt``
+             and brought back by ``cli.py convert``: nothing missing or
+             mismatched, and the rows of a detector on it equal the
+             committed checkpoint's bit for bit; a crafted ``.pt`` (a view
+             past its storage) is refused.
+11. random  - ``--allow-random``'s path at full width: a seeded
+             YOLO11x-OBB 4ch init, ``calibrate_density`` at 416 and
+             ``detect_images`` of two maps, which give rows at the predict
+             threshold and launch K1 and K2.
+12. train   - the training path (``Train_OBB.py``'s configuration) on four
              seeded 1024x1024 train maps (64 tiles at 416/100, labels from
              the maps' own rectangles written with ``write_labels``) and
              one val map (16 tiles), fed through ``TileDataset(reader=...)``
@@ -99,7 +122,7 @@ KERNELS = ("edt_pass1_columns", "edt_pass2_rows")
 # also pass one block's 1024 rows) and K2's row slots raggedly; 20000 is a
 # row wide enough for the shared-memory opt-in
 RAGGED_SHAPES = ((3, 37, 53), (2, 4097, 33), (1, 1, 700), (5, 416, 1),
-                 (1, 4, 20000))
+                 (1, 4, 20000), (1, 500, 700))
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 # per-SM limits of sm_90, as the CUDA occupancy calculator has them
 SM_THREADS, SM_BLOCKS, SM_REGS, SM_SMEM = 2048, 32, 65536, 233472
@@ -683,6 +706,514 @@ def phase_profile(torch, det, img, maps: int, phase: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Multi-map detection, the single-crop predictor, convert, random init
+# ---------------------------------------------------------------------------
+
+# the reference's Input/Test1.png (895x807) and Test2.png (1056x1028) and
+# two 1024x1024 maps, as (H, W)
+BATCH_SHAPES = ((807, 895), (1028, 1056), (1024, 1024), (1024, 1024))
+BATCH_SEEDS = (1, 2, 3, 4)
+DUAL_BATCH_SEEDS = tuple(range(21, 29))      # eight 1024x1024 maps
+RANDOM_SEEDS = (31, 32)
+STREAM_CHUNK = 2
+
+
+def reset_launches(E) -> None:
+    for k in E.LAUNCHES:
+        E.LAUNCHES[k] = 0
+
+
+class PathKernels:
+    """Wraps both EDT wrappers for one run of a path: each call's input and
+    the output the path went on with are kept, and ``check`` holds every
+    output bit-equal to the kernel's plain version on the same input on
+    the card. The plain versions launch nothing, so the counts stay the
+    path's."""
+
+    def __init__(self, E):
+        self.E, self.calls, self.saved = E, [], {}
+
+    def __enter__(self):
+        for name in KERNELS:
+            self.saved[name] = fn = getattr(self.E, name)
+
+            def spy(x, _name=name, _fn=fn):
+                out = _fn(x)
+                self.calls.append((_name, x, out))
+                return out
+
+            setattr(self.E, name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.E, name, fn)
+
+    def shapes(self, name: str) -> list:
+        return [list(x.shape) for n, x, _ in self.calls if n == name]
+
+    def check(self, torch, label: str) -> list:
+        """[[kernel, *input shape]] of every call, each checked."""
+        plain = {"edt_pass1_columns": self.E.edt_pass1_columns_plain,
+                 "edt_pass2_rows": self.E.edt_pass2_rows_plain}
+        for name, x, out in self.calls:
+            if not torch.equal(out, plain[name](x)):
+                raise AssertionError(f"{label}: {name} at {list(x.shape)} "
+                                     f"differs from its plain version")
+        checked = [[name, *x.shape] for name, x, _ in self.calls]
+        self.calls = []
+        return checked
+
+
+def device_busy(torch, fn) -> tuple:
+    """(device busy ms, device ops) of one synchronized call of ``fn`` under
+    ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not ops:
+        raise AssertionError("the profiler recorded no device work")
+    return busy_ms((e.time_range.start, e.time_range.end) for e in ops), \
+        len(ops)
+
+
+def dispatch_syncs(torch, det, maps) -> dict:
+    """Host synchronizations inside a side-stream upload and the multi-map
+    dispatch (the part of ``detect_stream`` that must queue without
+    waiting), as ``torch.cuda.set_sync_debug_mode`` reports them; the rows
+    are fetched afterwards."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            pending = det._dispatch(det._upload(maps, side=True))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    det._fetch(pending)
+    msgs = [str(w.message) for w in caught
+            if "called a synchronizing" in str(w.message)]
+    return {"count": len(msgs), "first": msgs[:2]}
+
+
+def tile_gather_seconds(torch, det, maps) -> dict:
+    """Seconds of ``ops/tiling.extract_tiles`` over every map at each of the
+    detector's scales, as the dispatch runs it: the host's time to queue
+    it, and with the device's work waited for."""
+    from oriented_object_detection_tpu_torch.ops import tiling as T
+
+    dev = [torch.from_numpy(m).cuda() for m in maps]
+    grids = [(sc.tile_size, [T.inference_tile_grid(*m.shape[:2],
+                                                   sc.tile_size, sc.overlap)
+                             for m in maps]) for sc in det.cfg.scales]
+
+    def gather():
+        return [torch.cat([T.extract_tiles(m, g, ts)
+                           for m, g in zip(dev, gs)]) for ts, gs in grids]
+
+    gather()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tiles = gather()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return {"tiles": sum(len(t) for t in tiles), "host_s": host,
+            "synchronized_s": wall_seconds(torch, gather)[1]}
+
+
+def run_modes(torch, E, det, maps, reps: int = 2) -> tuple:
+    """Per-map ``detect_image``, ``detect_images`` and ``detect_stream``
+    (groups of ``STREAM_CHUNK``) over ``maps``, each warmed once, then
+    driven with the launch counts set to 0 just before and read just
+    after, then timed ``reps`` more times and profiled once. Returns
+    ({mode: per-map results}, {mode: numbers})."""
+    from oriented_object_detection_tpu_torch.utils import profiling as prof
+
+    runs = {"per_image": lambda: [det.detect_image(m) for m in maps],
+            "batch": lambda: det.detect_images(maps),
+            "stream": lambda: list(det.detect_stream(maps,
+                                                     chunk=STREAM_CHUNK))}
+    results, numbers = {}, {}
+    for mode, fn in runs.items():
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        prof.reset()
+        with PathKernels(E) as rec:
+            reset_launches(E)
+            res, sec = wall_seconds(torch, fn)
+            launches = dict(E.LAUNCHES)
+        stages = {k: v["total_s"] for k, v in prof.report().items()}
+        peak = torch.cuda.max_memory_allocated()
+        bit_equal = rec.check(torch, mode)
+        times = [sec] + [wall_seconds(torch, fn)[1] for _ in range(reps)]
+        busy, ops = device_busy(torch, fn)
+        wall = statistics.median(times)
+        results[mode] = res
+        numbers[mode] = {
+            "launches": launches,
+            "seconds_per_map": wall / len(maps),
+            "seconds_per_map_all": [t / len(maps) for t in times],
+            "device_busy_ms_per_map": busy / len(maps),
+            "idle_share": 1.0 - busy / (wall * 1e3),
+            "device_ops_per_map": ops / len(maps),
+            "peak_memory_gib": peak / 2 ** 30,
+            "stage_seconds": stages,
+            "kernels_bit_equal_to_plain": bit_equal}
+    return results, numbers
+
+
+def pair_modes(results: dict, scales, skip_near=(),
+               modes=("batch", "stream")) -> None:
+    """Each map's rows of each of ``modes`` (``detect_images``,
+    ``detect_stream``) pair with its ``detect_image`` rows both ways
+    (``match_rows``), per scale and fused."""
+    for mode in modes:
+        for got, one in zip(results[mode], results["per_image"]):
+            for a, b in ((got, one), (one, got)):
+                for ts in scales:
+                    match_rows(a["by_scale"][ts], b["by_scale"][ts])
+                match_rows(a["merged_for_pr"], b["merged_for_pr"],
+                           skip_near=skip_near)
+
+
+def phase_batch(torch, E) -> dict:
+    """Multi-map detection: the 4ch n-scale slice over the four
+    ``BATCH_SHAPES`` maps (one K1 and one K2 launch for the batch, one a
+    group for the stream), and ``detect_dual`` at full width over eight
+    1024x1024 maps; the rows of both multi-map modes pair with the per-map
+    rows on every map, and every K1 and K2 output of each mode's counted
+    run is bit-equal to its plain version on the same input."""
+    from oriented_object_detection_tpu_torch.infer import fusion as F
+    from oriented_object_detection_tpu_torch.infer.pipeline import (
+        build_detector)
+    from oriented_object_detection_tpu_torch.ops import tiling as T
+
+    maps = [synthetic_map(s, H=h, W=w)[0]
+            for s, (h, w) in zip(BATCH_SEEDS, BATCH_SHAPES)]
+    det = build_detector([(416, 100, CKPT)], channels=4)
+    res, num = run_modes(torch, E, det, maps)
+    groups = -(-len(maps) // STREAM_CHUNK)
+    want = {"per_image": len(maps), "batch": 1, "stream": groups}
+    for mode, n in want.items():
+        if num[mode]["launches"] != {k: n for k in KERNELS}:
+            raise AssertionError(f"4ch {mode}: launches "
+                                 f"{num[mode]['launches']}, not {n} each")
+    pair_modes(res, (416,))
+    for r, m in zip(res["batch"], maps):
+        check_rows(r["merged_for_pr"], *m.shape[:2],
+                   det.cfg.conf_thr_predict)
+    four = {"maps": [list(m.shape[:2]) for m in maps],
+            "tiles": sum(len(T.inference_tile_grid(h, w, 416, 100))
+                         for h, w in BATCH_SHAPES),
+            "rows": [len(r["merged_for_pr"]) for r in res["batch"]],
+            "dispatch_syncs": dispatch_syncs(torch, det, maps),
+            "tile_gather": tile_gather_seconds(torch, det, maps), **num}
+    emit({"phase": "batch", "part": "4ch", "model_scale": "n", **four})
+    del det
+
+    maps = [synthetic_map(s)[0] for s in DUAL_BATCH_SEEDS]
+    det = build_detector(DUAL)
+    res, num = run_modes(torch, E, det, maps)
+    if any(n for mode in num.values() for n in mode["launches"].values()):
+        raise AssertionError("the 3-channel path ran an EDT kernel")
+    pair_modes(res, (128, 416), skip_near=(F.CONS_LOW, F.CONS_HIGH))
+    for r in res["batch"]:
+        check_rows(r["merged_for_pr"], 1024, 1024, det.cfg.conf_thr_predict)
+    emit({"phase": "batch", "part": "dual", "model_scale": "x",
+          "maps": len(maps), "map": [1024, 1024],
+          "tiles_per_map": {str(ts): len(T.inference_tile_grid(
+              1024, 1024, ts, ov)) for ts, ov, _ in DUAL},
+          "rows": [len(r["merged_for_pr"]) for r in res["batch"]],
+          "dispatch_syncs": dispatch_syncs(torch, det, maps[:STREAM_CHUNK]),
+          "tile_gather": tile_gather_seconds(torch, det, maps), **num})
+    phase_sheets(torch, det, maps)
+    return {"batch": four["batch"]["launches"],
+            "stream": four["stream"]["launches"]}
+
+
+def phase_sheets(torch, det, maps) -> None:
+    """``detect_dual`` over sheets of the size users run: two 4096x4096
+    sheets, each a 4x4 mosaic of the 1024x1024 maps, in one
+    ``detect_images`` call, against ``detect_image`` of each. The tiles
+    pass the network in several forwards a scale
+    (``TILE_PIXELS_PER_FORWARD``); the rows pair both ways; seconds a
+    sheet and the peak device memory of both modes."""
+    from oriented_object_detection_tpu_torch.infer import fusion as F
+    from oriented_object_detection_tpu_torch.infer import pipeline as P
+    from oriented_object_detection_tpu_torch.ops import tiling as T
+
+    sheets = [np.concatenate([np.concatenate(
+        [maps[(5 * k + 4 * r + c) % len(maps)] for c in range(4)], axis=1)
+        for r in range(4)]) for k in range(2)]
+    H, W = sheets[0].shape[:2]
+    tiles = {ts: len(T.inference_tile_grid(H, W, ts, ov))
+             for ts, ov, _ in DUAL}
+    forwards = {ts: -(-len(sheets) * n // max(
+        1, P.TILE_PIXELS_PER_FORWARD // (ts * ts))) for ts, n in tiles.items()}
+    if max(forwards.values()) < 2:
+        raise AssertionError(f"the sheets ran in one forward a scale: "
+                             f"{forwards}")
+    out = {}
+    for mode, fn in (("batch", lambda: det.detect_images(sheets)),
+                     ("per_image", lambda: [det.detect_image(s)
+                                            for s in sheets])):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        res, sec = wall_seconds(torch, fn)
+        out[mode] = {"seconds_per_sheet": sec / len(sheets),
+                     "peak_memory_gib":
+                         torch.cuda.max_memory_allocated() / 2 ** 30,
+                     "rows": [len(r["merged_for_pr"]) for r in res],
+                     "results": res}
+    results = {m: v.pop("results") for m, v in out.items()}
+    pair_modes(results, tiles, skip_near=(F.CONS_LOW, F.CONS_HIGH),
+               modes=("batch",))
+    for r in results["batch"]:
+        check_rows(r["merged_for_pr"], H, W, det.cfg.conf_thr_predict)
+    emit({"phase": "batch", "part": "sheets", "model_scale": "x",
+          "sheets": len(sheets), "sheet": [H, W],
+          "tiles_per_sheet": {str(k): v for k, v in tiles.items()},
+          "forwards_batch": {str(k): v for k, v in forwards.items()},
+          **out})
+
+
+def phase_crop(torch, E, img) -> dict:
+    """``predict_crop`` of the 4ch n-scale detector on a 500x700 crop, with
+    the percentile and the Otsu binarization: K1 and K2 launch once, at the
+    crop's own shape, each output bit-equal to its plain version on the
+    same input; the rows pair with the CPU's; Otsu's edge mask on the card
+    equals the CPU's."""
+    from oriented_object_detection_tpu_torch.config import DTEdgeConfig
+    from oriented_object_detection_tpu_torch.infer.pipeline import (
+        build_detector)
+    from oriented_object_detection_tpu_torch.ops import dtedge as DT
+
+    crop = np.ascontiguousarray(img[100:600, 150:850])
+    H, W = crop.shape[:2]
+    out = {}
+    for method in ("percentile", "otsu"):
+        kw = {"channels": 4, "dt_edge": DTEdgeConfig(bin_method=method)}
+        det = build_detector([(416, 100, CKPT)], **kw)
+        det.predict_crop(crop)
+        with PathKernels(E) as rec:
+            reset_launches(E)
+            rows = det.predict_crop(crop).rows
+            torch.cuda.synchronize()
+            launches = dict(E.LAUNCHES)
+        shapes = rec.shapes("edt_pass1_columns")
+        bit_equal = rec.check(torch, f"crop {method}")
+        if launches != {k: 1 for k in KERNELS} or shapes != [[1, H, W]]:
+            raise AssertionError(f"crop {method}: launches {launches} at "
+                                 f"{shapes}, not one each at [1, {H}, {W}]")
+        check_rows(rows, H, W, det.cfg.conf_thr_predict)
+        cpu = build_detector([(416, 100, CKPT)], device="cpu",
+                             **kw).predict_crop(crop).rows
+        match_rows(rows, cpu)
+        match_rows(cpu, rows)
+        times = [wall_seconds(torch, lambda: det.predict_crop(crop))[1]
+                 for _ in range(3)]
+        out[method] = {"launches": launches, "edt_shapes": shapes,
+                       "kernels_bit_equal_to_plain": bit_equal,
+                       "rows": len(rows), "cpu_rows": len(cpu),
+                       "seconds": statistics.median(times)}
+    cfg = DTEdgeConfig(bin_method="otsu")
+    mask = DT.edge_mask(torch.from_numpy(crop).cuda()[None], cfg)[0].cpu()
+    if not torch.equal(mask, DT.edge_mask(torch.from_numpy(crop)[None],
+                                          cfg)[0]):
+        raise AssertionError("Otsu's edge mask differs between the card and "
+                             "the CPU")
+    emit({"phase": "crop", "crop": [H, W], "otsu_mask_card_equals_cpu": True,
+          "otsu_edge_share": float(mask.float().mean()), **out})
+    return out["percentile"]["launches"]
+
+
+def save_fake_ultralytics(torch, sd: dict, path: str) -> None:
+    """``torch.save`` of {'model': <a module tree holding ``sd`` under a
+    stub ``ultralytics.nn.tasks.OBBModel``>, 'ema': None}, the layout of an
+    ultralytics checkpoint; the stub module is in ``sys.modules`` only
+    while saving."""
+    import types
+
+    from torch import nn
+
+    root = nn.Module()
+    for key, val in sd.items():
+        *mods, leaf = key.split(".")
+        node = root
+        for name in mods:
+            if name not in node._modules:
+                node.add_module(name, nn.Module())
+            node = node._modules[name]
+        node.register_buffer(leaf, torch.from_numpy(
+            np.ascontiguousarray(val)))
+    tasks = types.ModuleType("ultralytics.nn.tasks")
+
+    class OBBModel(nn.Module):
+        pass
+
+    OBBModel.__module__ = "ultralytics.nn.tasks"
+    OBBModel.__qualname__ = "OBBModel"
+    tasks.OBBModel = OBBModel
+    wrapper = OBBModel()
+    wrapper.add_module("model", root._modules["model"])
+    names = ("ultralytics", "ultralytics.nn", "ultralytics.nn.tasks")
+    saved = {k: sys.modules.get(k) for k in names}
+    sys.modules.update({"ultralytics": types.ModuleType("ultralytics"),
+                        "ultralytics.nn": types.ModuleType("ultralytics.nn"),
+                        "ultralytics.nn.tasks": tasks})
+    try:
+        torch.save({"epoch": 0, "model": wrapper, "ema": None}, path)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                sys.modules.pop(k, None)
+            else:
+                sys.modules[k] = v
+
+
+def write_crafted_pt(torch, path: str) -> None:
+    """A torch zip checkpoint whose one tensor, of size (4096,), views a
+    storage of 4 float32 elements."""
+    import io
+    import pickle
+    from collections import OrderedDict
+
+    class Storage:
+        pass
+
+    class View:
+        def __reduce__(self):
+            return (torch._utils._rebuild_tensor_v2,
+                    (Storage(), 0, (4096,), (1,), False, OrderedDict()))
+
+    class Pickler(pickle.Pickler):
+        def persistent_id(self, obj):
+            if isinstance(obj, Storage):
+                return ("storage", torch.FloatStorage, "0", "cpu", 4)
+            return None
+
+    buf = io.BytesIO()
+    Pickler(buf, protocol=2).dump(OrderedDict(w=View()))
+    with zipfile.ZipFile(path, "w") as zf:
+        zf.writestr("archive/data.pkl", buf.getvalue())
+        zf.writestr("archive/version", "3\n")
+        zf.writestr("archive/byteorder", "little")
+        zf.writestr("archive/data/0", bytes(16))
+
+
+def phase_convert(torch, img) -> None:
+    """``train416_4ch.ckpt`` exported (``export_state_dict``, the stem's
+    channels reversed) as a fake ultralytics ``.pt``, then ``convert``ed
+    back: nothing missing or mismatched, and a detector on it gives the
+    committed checkpoint's rows bit for bit; a crafted ``.pt`` is
+    refused."""
+    import contextlib
+    import io
+    import pickle
+
+    from oriented_object_detection_tpu_torch.cli import main as cli_main
+    from oriented_object_detection_tpu_torch.infer.pipeline import (
+        build_detector)
+    from oriented_object_detection_tpu_torch.models.pt_reader import (
+        read_pt_state_dict)
+    from oriented_object_detection_tpu_torch.models.weights import (
+        export_state_dict, load_checkpoint, variables_from_checkpoint)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        sd = export_state_dict(variables_from_checkpoint(
+            load_checkpoint(CKPT)), reverse_stem_channels=True)
+        pt, out = os.path.join(tmp, "best.pt"), os.path.join(tmp, "b.ckpt")
+        save_fake_ultralytics(torch, sd, pt)
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            cli_main(["convert", pt, "--out", out, "--scale", "n",
+                      "--channels", "4", "--imgsz", "416"])
+        m = re.search(r"matched (\d+) arrays; missing=(\d+) extra=(\d+) "
+                      r"mismatched=(\d+)", text.getvalue())
+        if m is None or m.group(2) != "0" or m.group(4) != "0":
+            raise AssertionError(f"convert report: {text.getvalue()}")
+        rows = [build_detector([(416, 100, ck)], channels=4).detect_image(
+            img)["merged_for_pr"] for ck in (CKPT, out)]
+        if not np.array_equal(*rows):
+            raise AssertionError("the converted checkpoint's rows differ "
+                                 "from the committed checkpoint's")
+        crafted = os.path.join(tmp, "crafted.pt")
+        write_crafted_pt(torch, crafted)
+        try:
+            read_pt_state_dict(crafted)
+        except pickle.UnpicklingError as e:
+            refused = str(e)
+        else:
+            raise AssertionError("the crafted .pt was read")
+    emit({"phase": "convert", "tensors": len(sd),
+          "report": {"matched": int(m.group(1)), "missing": 0,
+                     "extra": int(m.group(3)), "mismatched": 0},
+          "rows": len(rows[0]), "rows_bit_equal": True,
+          "crafted_refused": refused})
+
+
+def phase_random(torch, E) -> dict:
+    """``--allow-random``'s path at full width: a seeded YOLO11x-OBB 4ch
+    init, ``calibrate_density`` at 416, and ``detect_images`` of two maps,
+    which must give rows at the predict threshold and launch K1 and K2,
+    each output bit-equal to its plain version on the same input."""
+    import dataclasses
+
+    from oriented_object_detection_tpu_torch.config import (PRESETS,
+                                                            ScaleConfig)
+    from oriented_object_detection_tpu_torch.infer.pipeline import (
+        TiledDetector, random_variables)
+    from oriented_object_detection_tpu_torch.models.calibrate import (
+        calibrate_density)
+    from oriented_object_detection_tpu_torch.models.yolo11_obb import (
+        YOLO11OBB)
+
+    t0 = time.perf_counter()
+    variables = random_variables(12, "x", 4, seed=0)
+    init_s = time.perf_counter() - t0
+    cal, cal_s = wall_seconds(torch, lambda: calibrate_density(
+        YOLO11OBB(nc=12, scale="x", in_channels=4), variables, 416, 4))
+    offset = float(cal["params"]["l23"]["cv3_0_2"]["bias"][0]
+                   - variables["params"]["l23"]["cv3_0_2"]["bias"][0])
+    cfg = dataclasses.replace(PRESETS["detect_416_4ch"], scales=(
+        ScaleConfig(416, 100, model_scale="x"),))
+    det = TiledDetector(cfg, {416: cal})
+    maps = [synthetic_map(s)[0] for s in RANDOM_SEEDS]
+    det.detect_images(maps)
+    with PathKernels(E) as rec:
+        reset_launches(E)
+        res, sec = wall_seconds(torch, lambda: det.detect_images(maps))
+        launches = dict(E.LAUNCHES)
+    bit_equal = rec.check(torch, "random")
+    if launches != {k: 1 for k in KERNELS}:
+        raise AssertionError(f"random: launches {launches}, not one each")
+    rows = [r["merged_for_pr"] for r in res]
+    if not sum(len(r) for r in rows):
+        raise AssertionError("the calibrated random model gave no rows")
+    for r in rows:
+        if len(r):
+            check_rows(r, 1024, 1024, cfg.conf_thr_predict)
+    times = [sec] + [wall_seconds(torch, lambda: det.detect_images(maps))[1]
+                     for _ in range(2)]
+    emit({"phase": "random", "model_scale": "x", "channels": 4,
+          "maps": len(maps), "init_seconds": init_s,
+          "calibrate_seconds": cal_s, "bias_offset": offset,
+          "rows": [len(r) for r in rows], "launches": launches,
+          "kernels_bit_equal_to_plain": bit_equal,
+          "seconds_per_map": statistics.median(times) / len(maps),
+          "seconds_per_map_all": [t / len(maps) for t in times]})
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # Training
 # ---------------------------------------------------------------------------
 
@@ -1122,18 +1653,26 @@ def main(argv=None) -> int:
     if args.profile:
         phase_profile(torch, dual, img, args.profile, "dual_profile")
     del dual
+    multi = phase_batch(torch, E)
+    crop = phase_crop(torch, E, img)
+    phase_convert(torch, img)
+    rand = phase_random(torch, E)
     train = phase_train(torch, E, smi)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     # the times are the slice-mask shape's, device only; the launches are
-    # the slice's, and by path: the dual path runs neither kernel, the
-    # training path's 4-channel build runs both
+    # the slice's, and by path: the dual path runs neither kernel, the 4ch
+    # batch and stream, the crop, the random x-scale path and the training
+    # path's 4-channel build run both
     emit({"kernels": [
         {"name": name, "route": "cuda",
          "source": "oriented_object_detection_tpu_torch/csrc/edt.cu",
          "replaces": REPLACES[name], "launches": sl["launches"][name],
          "launches_by_path": {"slice": sl["launches"][name], "dual": 0,
+                              "batch": multi["batch"][name],
+                              "stream": multi["stream"][name],
+                              "crop": crop[name], "random": rand[name],
                               "train_4ch_build": train["launches"][name]},
          **{k: kern["slice"][name][k] for k in keys},
          "shape": ["slice", *smask.shape], "timing": "device_only"}

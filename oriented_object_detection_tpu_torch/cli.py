@@ -12,6 +12,9 @@
   python -m oriented_object_detection_tpu_torch.cli val \
       --ckpt runs/obb/train416/best.ckpt --data-root datasets/GeoMap
 
+  python -m oriented_object_detection_tpu_torch.cli convert best416.pt \
+      --out best416.ckpt [--scale x] [--channels 4]
+
 ``train`` builds the tile dataset from ``{root}/images/{train,val}`` and
 ``{root}/labels/{train,val}`` (tiling, class balancing, empty-tile budget,
 the 4-channel TIFFs for ``--channels 4``) and trains, writing ``best.ckpt``,
@@ -23,7 +26,11 @@ consensus filter and writes ``{stem}_detected.jpg`` and ``{stem}.xlsx`` per
 image of ``--input`` to ``--output``; with ``--metrics``, it then prints the
 reference's metric block against each image's label file and writes
 ``fusion_classwise_metrics.xlsx``. Each checkpoint's recorded channels and
-model scale are read from it. Every command runs on the CUDA card unless
+model scale are read from it. ``--batch`` detects every map in one device
+batch per scale, ``--stream`` and ``--chunk N`` pipeline the maps one or N
+at a time; the outputs are those of the per-map path. ``convert`` turns an
+ultralytics checkpoint into one that ``detect`` reads, with no torch code
+of the file run. Every command but ``convert`` runs on the CUDA card unless
 ``--device cpu`` is given; reading and drawing the images needs cv2.
 """
 
@@ -53,10 +60,10 @@ def _triples(args) -> list:
 
 
 def _detect(args) -> None:
-    import cv2  # noqa: F401  (fail early: the images are read with it)
+    import cv2  # the images are read and drawn with it
 
     from .eval.metrics import run_fusion_eval
-    from .infer.pipeline import build_detector, process_image
+    from .infer.pipeline import build_detector, process_image, write_outputs
 
     triples = _triples(args)
     if not triples:
@@ -64,9 +71,9 @@ def _detect(args) -> None:
     try:
         det = build_detector(
             triples, channels=args.channels, model_scale=args.scale,
-            device=args.device, calculate_metrics=args.metrics,
-            merge_iou=args.merge_iou, metrics_iou=args.metrics_iou,
-            map_min_score=args.map_min_score,
+            device=args.device, allow_random=args.allow_random,
+            calculate_metrics=args.metrics, merge_iou=args.merge_iou,
+            metrics_iou=args.metrics_iou, map_min_score=args.map_min_score,
             apply_border_filter=not args.no_border_filter,
             margin_128=args.margin_128, margin_416=args.margin_416)
     except ValueError as e:
@@ -78,11 +85,27 @@ def _detect(args) -> None:
                                     ".tiff"))]
     t0 = time.time()
     store: dict = {}
-    for fname in names:
-        print(f"Processing {fname}...")
-        process_image(det, os.path.join(args.input, fname), args.output,
-                      store=store)
-        print(f"Results saved for {fname}")
+    if args.batch or args.stream or args.chunk:
+        paths = [os.path.join(args.input, f) for f in names]
+        ok = [(p, im) for p, im in ((p, cv2.imread(p)) for p in paths)
+              if im is not None]
+        maps = [im for _, im in ok]
+        if args.chunk:
+            # groups of --chunk maps in input order, nothing padded
+            results = det.detect_stream(maps, chunk=args.chunk)
+        elif args.stream:
+            results = det.detect_stream(maps)
+        else:
+            results = det.detect_images(maps)
+        for (p, im), res in zip(ok, results):
+            write_outputs(im, p, res, args.output, store)
+            print(f"Results saved for {os.path.basename(p)}")
+    else:
+        for fname in names:
+            print(f"Processing {fname}...")
+            process_image(det, os.path.join(args.input, fname), args.output,
+                          store=store)
+            print(f"Results saved for {fname}")
     print(f"--- {time.time() - t0:.2f} seconds ---")
 
     if args.metrics:
@@ -239,6 +262,60 @@ def _val(args) -> dict:
     return {"fitness": fitness, **comps}
 
 
+def _convert(args) -> None:
+    """An ultralytics ``.pt`` (or an ``.npz`` dump of its state dict) -> a
+    checkpoint in the JAX package's format, which both packages' ``detect``
+    read. The ``.pt`` is read by ``models/pt_reader.py``, which runs no code
+    from the file; the ``ema`` entry wins over ``model``."""
+    import pickle
+
+    import numpy as np
+
+    from .models.weights import (convert_state_dict,
+                                 jax_trees_from_torch_state,
+                                 validate_against)
+    from .models.yolo11_obb import YOLO11OBB
+
+    if args.pt.endswith(".npz"):
+        with np.load(args.pt) as z:
+            sd = {k: np.asarray(v) for k, v in z.items()}
+    else:
+        from .models.pt_reader import read_pt_state_dict
+
+        try:
+            sd = read_pt_state_dict(args.pt)
+        except (ValueError, pickle.UnpicklingError) as e:
+            raise SystemExit(f"cannot read {args.pt}: {e}")
+        print(f"[Convert] read {len(sd)} tensors (torch-free)")
+
+    variables = convert_state_dict(
+        sd, reverse_stem_channels=args.channels == 4)
+    ref = jax_trees_from_torch_state(YOLO11OBB(
+        nc=args.nc, scale=args.scale, in_channels=args.channels).state_dict())
+    rep = validate_against(variables, ref)
+    print(f"[Convert] matched {rep['matched']} arrays; "
+          f"missing={len(rep['missing'])} extra={len(rep['extra'])} "
+          f"mismatched={len(rep['mismatched'])}")
+    if (rep["missing"] or rep["mismatched"]) and not args.force:
+        for k in (rep["missing"] + rep["mismatched"])[:8]:
+            print(f"  problem: {k}")
+        raise SystemExit("conversion incomplete (use --force to write "
+                         "anyway)")
+
+    payload = {
+        "step": 0,
+        "params": variables["params"],
+        "batch_stats": variables["batch_stats"],
+        "ema_params": variables["params"],
+        "extra": {"model_scale": args.scale, "channels": args.channels,
+                  "tile_size": args.imgsz, "source": args.pt},
+    }
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+    with open(args.out, "wb") as f:
+        pickle.dump(payload, f)
+    print(f"[Convert] wrote {args.out}")
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="oriented_object_detection_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -257,6 +334,18 @@ def main(argv=None):
                    help="model scale where a checkpoint records none")
     d.add_argument("--metrics", action="store_true",
                    help="evaluate against the images' label files")
+    d.add_argument("--batch", action="store_true",
+                   help="one device batch per scale over every input map")
+    d.add_argument("--stream", action="store_true",
+                   help="pipelined per-map detection: the next map's "
+                        "upload and device work overlap this map's host "
+                        "merges")
+    d.add_argument("--chunk", type=int, default=0,
+                   help="pipelined detection over groups of N maps, in "
+                        "input order")
+    d.add_argument("--allow-random", action="store_true",
+                   help="run with random init when a named checkpoint "
+                        "does not exist (default: error)")
     # the remaining Detect_OBB.py constants (`:33-40`)
     d.add_argument("--merge-iou", type=float, default=0.4,
                    help="merge NMS IoU (reference iou_threshold)")
@@ -317,6 +406,19 @@ def main(argv=None):
     v.add_argument("--device", default=None,
                    help="torch device; default: the CUDA card")
     v.set_defaults(fn=_val)
+
+    c = sub.add_parser("convert",
+                       help="ultralytics .pt/.npz -> checkpoint")
+    c.add_argument("pt", help=".pt checkpoint or .npz state-dict dump")
+    c.add_argument("--out", required=True, help="output .ckpt path")
+    c.add_argument("--scale", default="x")
+    c.add_argument("--channels", type=int, default=3, choices=(3, 4))
+    c.add_argument("--nc", type=int, default=12)
+    c.add_argument("--imgsz", type=int, default=416,
+                   help="tile size recorded in the checkpoint")
+    c.add_argument("--force", action="store_true",
+                   help="write even if some model arrays are missing")
+    c.set_defaults(fn=_convert)
 
     args = p.parse_args(argv)
     return args.fn(args)

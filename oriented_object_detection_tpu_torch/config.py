@@ -46,7 +46,9 @@ class DTEdgeConfig:
     """DT-Edge 4th-channel synthesis knobs (`Detect_OBB.py:29-32`)."""
 
     sigmas: tuple = (0.0, 0.6, 1.2, 2.4)
+    bin_method: str = "percentile"       # "percentile" | "otsu"
     p_hi: int = 90                       # percentile binarize threshold
+    p_lo: int = 65                       # config surface only: nothing reads it
     morph_open: int = 1
     tau: float = 3.0
 

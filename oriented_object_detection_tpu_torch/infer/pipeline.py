@@ -7,6 +7,17 @@ exact-IoU merge, the cross-scale consensus fusion and the global merges
 (``infer/fusion.py``, ``native/geom.cpp``), then the ``{stem}_detected.jpg``
 and ``{stem}.xlsx`` outputs.
 
+``detect_images`` runs one device batch per scale over the tiles of several
+maps; ``detect_stream`` pipelines groups of maps, uploading the next group
+and running its device work while the host merges the last. The device part
+queues without a host synchronization: each scale's fixed-shape rows come
+back into pinned memory behind a CUDA event that the host waits on before
+its merges, and the stream uploads each later group from pinned memory on a
+side stream. The tiles go through the network in chunks of a fixed number
+of pixels, so memory stays bounded however many maps come.
+``predict_crop`` is the reference's single-crop predictor (letterbox, one
+forward, no tiling).
+
 Detection rows follow the reference's 11-column layout
 (x1..y4 in map pixels, cls_id, conf, angle_deg).
 """
@@ -22,19 +33,26 @@ import torch
 from ..config import CLASS_COLORS, CLASS_NAMES, DetectConfig, ScaleConfig
 from ..models import decode as D
 from ..models.fold import fold_bn_state
-from ..models.weights import (load_checkpoint, load_state,
-                              torch_state_from_jax, variables_from_checkpoint)
+from ..models.weights import (jax_trees_from_torch_state, load_checkpoint,
+                              load_state, torch_state_from_jax,
+                              variables_from_checkpoint)
 from ..models.yolo11_obb import YOLO11OBB
 from ..ops import dtedge as DT
 from ..ops import geometry as G
+from ..ops import image as IM
 from ..ops import tiling as T
 from ..utils import native
+from ..utils import profiling as prof
 from ..utils.runtime import resolve_device
 from ..utils.xlsx import export_xlsx
 from . import fusion as F
 
 STRIKE_CLS = 1  # "Strike" (`Detect_OBB.py:45`, angle only for this class)
 DET_WIDTH = F.DET_WIDTH
+# tile pixels through one forward, so one forward and its NMS hold a bounded
+# amount of memory: 192 tiles of 416 or 2048 of 128 (the peaks it gives are
+# in PERF.md section 5)
+TILE_PIXELS_PER_FORWARD = 1 << 25
 
 
 class Detections:
@@ -101,31 +119,65 @@ class TiledDetector:
                               in_channels=cfg.channels, fused_bn=True)
             load_state(model, state)
             self.models[sc.tile_size] = model.to(self.device).eval()
+        self._side_stream = None   # the card's upload stream, made on use
 
     def _conf_thr(self) -> float:
         return (self.cfg.conf_thr_metrics if self.cfg.calculate_metrics
                 else self.cfg.conf_thr_predict)
 
-    @torch.inference_mode()
-    def tile_rows(self, image_bgr: np.ndarray, scale: ScaleConfig
-                  ) -> np.ndarray:
-        """Device part of one scale: valid detections of every tile as host
-        rows [N, 13] float64 (x1..y4, cls, conf, angle, valid, tile_id) in
-        (tile, conf-descending) order."""
+    def _on_card(self) -> bool:
+        return self.device.type == "cuda"
+
+    def _upload(self, images_bgr: list, side: bool = False) -> tuple:
+        """(device maps, {tile_size: (host tile grids, one per map, and
+        their concatenation on the device)}, upload event or None). With
+        ``side`` on the card, the maps and grids go up from pinned memory
+        on a side stream, so the upload overlaps the work already queued
+        on the compute stream, and ``_dispatch`` makes the compute stream
+        wait for the event; otherwise they go up directly."""
+        grids = {sc.tile_size: [T.inference_tile_grid(
+            im.shape[0], im.shape[1], sc.tile_size, sc.overlap)
+            for im in images_bgr] for sc in self.cfg.scales}
+        host = [np.ascontiguousarray(im) for im in images_bgr] + [
+            np.concatenate(g) for g in grids.values()]
+        with prof.timed("detect/h2d"):
+            if not (side and self._on_card()):
+                dev, done = [torch.from_numpy(a).to(self.device)
+                             for a in host], None
+            else:
+                if self._side_stream is None:
+                    self._side_stream = torch.cuda.Stream(self.device)
+                with torch.cuda.stream(self._side_stream):
+                    dev = [torch.from_numpy(a).pin_memory().to(
+                        self.device, non_blocking=True) for a in host]
+                    done = torch.cuda.Event()
+                    done.record(self._side_stream)
+        n = len(images_bgr)
+        return dev[:n], dict(zip(grids, zip(grids.values(), dev[n:]))), done
+
+    def _to_host(self, rows: torch.Tensor) -> tuple:
+        """Queue the copy of ``rows`` to the host: (host tensor, event that
+        marks the copy done, None on the CPU)."""
+        if not self._on_card():
+            return rows, None
+        buf = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
+        buf.copy_(rows, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return buf, done
+
+    def _tile_rows(self, tiles: torch.Tensor, grid_t: torch.Tensor,
+                   first: int, ts: int) -> torch.Tensor:
+        """Rows [n, max_det, 13] (x1..y4, cls, conf, angle, valid, tile_id)
+        of n tiles [n, ts, ts, 3] at origins ``grid_t`` [n, 4], the first
+        being tile ``first`` of the scale's batch."""
         cfg = self.cfg
-        ts = scale.tile_size
-        h, w = image_bgr.shape[:2]
-        grid = T.inference_tile_grid(h, w, ts, scale.overlap)
-        image = torch.from_numpy(np.ascontiguousarray(image_bgr)).to(
-            self.device)
-        tiles = T.extract_tiles(image, grid, ts)
         x = DT.build_multich(tiles, cfg.channels, cfg.dt_edge) / 255.0
         out = self.models[ts](x)
         rbox, scores = D.decode_raw(out, ts)
         dets = D.postprocess_batch(
             rbox, scores, self._conf_thr(), cfg.engine_nms_iou,
             max_det=cfg.max_det_per_tile, pre_topk=cfg.pre_topk)
-        grid_t = torch.from_numpy(grid).to(self.device)
         c8g = T.stitch_to_global(dets["corners8"], grid_t[:, :2])
         valid = dets["valid"]
         margin = float(T.margin_for(ts, cfg.margin_128, cfg.margin_416))
@@ -134,13 +186,68 @@ class TiledDetector:
                                                margin)
         ang = torch.where(dets["cls"] == STRIKE_CLS, G.strike_angle(c8g),
                           torch.zeros_like(dets["conf"]))
-        tile_id = torch.arange(len(grid), device=self.device)[:, None] \
-            .expand_as(valid)
-        rows = torch.cat([
+        tile_id = torch.arange(first, first + len(grid_t),
+                               device=self.device)[:, None].expand_as(valid)
+        return torch.cat([
             c8g, dets["cls"][..., None].float(), dets["conf"][..., None],
             ang[..., None], valid[..., None].float(),
-            tile_id[..., None].float()], dim=-1)[valid]
-        return rows.cpu().numpy().astype(np.float64)
+            tile_id[..., None].float()], dim=-1)
+
+    def _scale_rows(self, maps: list, grids: list, grid_t: torch.Tensor,
+                    scale: ScaleConfig) -> tuple:
+        """Device part of one scale over the tiles of every map, with no
+        host synchronization: fixed-shape rows [T, max_det, 13] and each
+        map's (first tile, tile count). The tiles go through the network
+        in chunks of at most ``TILE_PIXELS_PER_FORWARD`` pixels, so the
+        activations and the NMS stay bounded however many maps come."""
+        ts = scale.tile_size
+        counts = [len(g) for g in grids]
+        starts = np.cumsum([0] + counts)
+        segments = list(zip(starts[:-1].tolist(), counts))
+        owner = np.repeat(np.arange(len(maps)), counts)
+        flat = np.concatenate(grids)
+        padded = [T.pad_for_tiles(m, ts) for m in maps]
+        per = max(1, TILE_PIXELS_PER_FORWARD // (ts * ts))
+        rows = []
+        for a in range(0, len(flat), per):
+            own = owner[a:a + per]
+            tiles = torch.cat([
+                T.gather_tiles(padded[i], flat[a:a + per][own == i], ts)
+                for i in np.unique(own)])
+            rows.append(self._tile_rows(tiles, grid_t[a:a + per], a, ts))
+        return torch.cat(rows), segments
+
+    @torch.inference_mode()
+    def _dispatch(self, uploaded: tuple) -> list:
+        """Queue every scale's device work over a group of uploaded maps,
+        and the copy of its rows to the host, without waiting for the
+        device. Returns [(tile_size, host rows, copy event, segments)]."""
+        maps, grids, done = uploaded
+        with prof.timed("detect/dispatch"):
+            if done is not None:
+                compute = torch.cuda.current_stream(self.device)
+                compute.wait_event(done)
+                for m in [*maps, *(g for _, g in grids.values())]:
+                    m.record_stream(compute)
+            pending = []
+            for sc in self.cfg.scales:
+                rows, segments = self._scale_rows(maps, *grids[sc.tile_size],
+                                                  sc)
+                pending.append((sc.tile_size, *self._to_host(rows),
+                                segments))
+        return pending
+
+    @staticmethod
+    def _fetch(pending: list) -> list:
+        """Wait for each scale's rows: [(tile_size, rows [T, max_det, 13]
+        float32 numpy, segments)]."""
+        with prof.timed("detect/fetch"):
+            out = []
+            for ts, buf, done, segments in pending:
+                if done is not None:
+                    done.synchronize()
+                out.append((ts, buf.numpy(), segments))
+        return out
 
     @staticmethod
     def _merge_collected(flat: np.ndarray, merge_iou: float) -> np.ndarray:
@@ -154,48 +261,153 @@ class TiledDetector:
             flat[:, 12].astype(np.int32), merge_iou)
         return np.ascontiguousarray(flat[keep][:, :DET_WIDTH])
 
-    def detect_scale(self, image_bgr: np.ndarray, scale: ScaleConfig
-                     ) -> np.ndarray:
-        """All detections of one scale as [N, 11] rows, in the reference's
-        order (tile scan order, conf-descending within each tile)."""
-        return self._merge_collected(self.tile_rows(image_bgr, scale),
-                                     self.cfg.merge_iou)
+    def _split_and_finalize(self, fetched: list, n_maps: int) -> list:
+        """Per map and scale, the valid rows of the map's tiles through the
+        per-tile merge, then each map's fusion (``_finalize``)."""
+        per_map: list[dict] = [dict() for _ in range(n_maps)]
+        for ts, rows, segments in fetched:
+            with prof.timed(f"detect/merge_{ts}"):
+                for i, (start, count) in enumerate(segments):
+                    sub = rows[start:start + count].reshape(-1, rows.shape[-1])
+                    sub = sub[sub[:, 11] > 0.5].astype(np.float64)
+                    per_map[i][ts] = self._merge_collected(
+                        sub, self.cfg.merge_iou)
+        with prof.timed("detect/fusion"):
+            return [self._finalize(d) for d in per_map]
+
+    def _finalize(self, dets_by_scale: dict) -> dict:
+        """The fusion (`Detect_OBB.py:268-345`): {'by_scale': {tile_size:
+        [N, 11]}, 'merged_for_pr': the global merge of the cross-scale
+        consensus} and, under ``calculate_metrics``, 'merged_for_map': the
+        global merge of the union of the scales."""
+        result = {"by_scale": dets_by_scale}
+        if self.cfg.calculate_metrics:
+            union = (np.concatenate(list(dets_by_scale.values()))
+                     if dets_by_scale else np.zeros((0, DET_WIDTH)))
+            result["merged_for_map"] = F.merge_detections(
+                union, self.cfg.merge_iou)
+        result["merged_for_pr"] = F.merge_detections(
+            F.cross_scale_consensus_filter(dets_by_scale), self.cfg.merge_iou)
+        return result
+
+    def detect_images(self, images_bgr: list) -> list:
+        """Detection over several maps: one device batch per scale covers
+        the tiles of every map, then each map's host merges and fusion.
+        Returns one result dict per map, as ``detect_image`` gives."""
+        images_bgr = list(images_bgr)
+        if not images_bgr:
+            return []
+        fetched = self._fetch(self._dispatch(self._upload(images_bgr)))
+        return self._split_and_finalize(fetched, len(images_bgr))
+
+    def detect_stream(self, images_bgr, chunk: int = 1):
+        """Pipelined detection, a generator of per-map result dicts (as
+        ``detect_image`` gives) over groups of ``chunk`` maps, in input
+        order. Per group k: dispatch k, upload k+1 (beside k's device
+        work), fetch k, dispatch k+1, then k's host merges and fusion while
+        the device runs k+1. The rows are those of ``detect_images`` over
+        each group."""
+        images_bgr = list(images_bgr)
+        if not images_bgr:
+            return
+        chunk = max(1, chunk)
+        groups = [images_bgr[i:i + chunk]
+                  for i in range(0, len(images_bgr), chunk)]
+        cur = self._dispatch(self._upload(groups[0]))
+        for k, nxt in enumerate(groups[1:]):
+            uploaded = self._upload(nxt, side=True)
+            fetched = self._fetch(cur)
+            cur = self._dispatch(uploaded)
+            yield from self._split_and_finalize(fetched, len(groups[k]))
+        yield from self._split_and_finalize(self._fetch(cur),
+                                            len(groups[-1]))
 
     def detect_image(self, image_bgr: np.ndarray) -> dict:
-        """Every scale, then the fusion (`Detect_OBB.py:268-345`):
-        {'by_scale': {tile_size: [N, 11]}, 'merged_for_pr': the global merge
-        of the cross-scale consensus} and, under ``calculate_metrics``,
-        'merged_for_map': the global merge of the union of the scales."""
-        by_scale = {sc.tile_size: self.detect_scale(image_bgr, sc)
-                    for sc in self.cfg.scales}
-        result = {"by_scale": by_scale}
-        if self.cfg.calculate_metrics:
-            result["merged_for_map"] = F.merge_detections(
-                np.concatenate(list(by_scale.values())), self.cfg.merge_iou)
-        result["merged_for_pr"] = F.merge_detections(
-            F.cross_scale_consensus_filter(by_scale), self.cfg.merge_iou)
-        return result
+        """Every scale, then the fusion (``_finalize``) of one map."""
+        return self.detect_images([image_bgr])[0]
 
     def predict(self, image_bgr: np.ndarray) -> Detections:
         """``detect_image`` behind the ultralytics-Results accessors."""
         return Detections(self.detect_image(image_bgr)["merged_for_pr"])
 
+    @torch.inference_mode()
+    def predict_crop(self, crop_bgr: np.ndarray,
+                     tile_size: int | None = None) -> Detections:
+        """The reference's single-crop predictor (`Detect_OBB.py:76-85`):
+        the network input built on the raw crop (DT-Edge at the crop's own
+        shape for 4 channels), letterboxed to the model size, one forward,
+        decode and the engine's rotated NMS, and the corners mapped back
+        to crop pixels by (x - pad) / ratio. No tiling, no border filter,
+        no merge: [N, 11] rows of the crop."""
+        ts = tile_size or self.cfg.scales[0].tile_size
+        if ts not in self.models:
+            raise ValueError(f"no model for tile size {ts}; have "
+                             f"{sorted(self.models)}")
+        cfg = self.cfg
+        crop = torch.from_numpy(np.ascontiguousarray(crop_bgr)).to(
+            self.device)
+        mc = DT.build_multich(crop[None], cfg.channels, cfg.dt_edge)[0]
+        x, ratio, (dw, dh) = IM.letterbox(mc.permute(1, 2, 0), ts)
+        out = self.models[ts](x.permute(2, 0, 1)[None] / 255.0)
+        rbox, scores = D.decode_raw(out, ts)
+        dets = D.postprocess_batch(
+            rbox, scores, self._conf_thr(), cfg.engine_nms_iou,
+            max_det=cfg.max_det_per_tile, pre_topk=cfg.pre_topk)
+        pad = torch.tensor([dw, dh] * 4, dtype=torch.float32,
+                           device=self.device)
+        c8 = (dets["corners8"][0] - pad) / ratio
+        cls = dets["cls"][0]
+        ang = torch.where(cls == STRIKE_CLS, G.strike_angle(c8),
+                          torch.zeros_like(dets["conf"][0]))
+        rows = torch.cat([c8, cls[:, None].float(),
+                          dets["conf"][0][:, None], ang[:, None],
+                          dets["valid"][0][:, None].float()], dim=1)
+        rows = rows.cpu().numpy().astype(np.float64)
+        return Detections(rows[rows[:, 11] > 0.5][:, :DET_WIDTH])
 
-def read_scales(triples, channels: int = 3, model_scale: str = "x"
-                ) -> tuple:
+
+def random_variables(nc: int, model_scale: str, channels: int,
+                     seed: int = 0) -> dict:
+    """Flax variables of a seeded fresh model (the JAX package's init rule,
+    ``train.trainer.fresh_model``, and the engine's head biases), for a
+    scale with no checkpoint."""
+    from ..train.trainer import fresh_model
+
+    return jax_trees_from_torch_state(
+        fresh_model(nc, model_scale, channels, seed).state_dict())
+
+
+def read_scales(triples, channels: int = 3, model_scale: str = "x",
+                allow_random: bool = False) -> tuple:
     """(scales, params_by_scale) for ``(tile_size, overlap, checkpoint)``
     triples, with each checkpoint's ``extra`` read as the JAX package's
     ``cli.py detect`` reads it: a recorded ``channels`` other than
     ``channels`` raises, a recorded ``model_scale`` wins over
     ``model_scale``, a recorded ``tile_size`` other than the scale's warns.
-    Duplicate tile sizes and missing checkpoints raise ``ValueError``."""
+    A scale with no checkpoint warns and gets ``random_variables``; a named
+    checkpoint that does not exist raises ``ValueError`` unless
+    ``allow_random``, and then warns and gets them too. Duplicate tile
+    sizes raise ``ValueError``."""
     scales, params = [], {}
     for ts, ov, ck in triples:
         if ts in params:
             raise ValueError(f"duplicate tile size {ts} in the scales")
+        msc = model_scale
         if ck is None or not os.path.exists(ck):
-            raise ValueError(f"checkpoint {ck} for scale {ts} does not "
-                             f"exist")
+            if ck is None:
+                print(f"[WARN] no checkpoint given for scale {ts}; random "
+                      f"init")
+            elif not allow_random:
+                raise ValueError(f"checkpoint {ck} for scale {ts} does not "
+                                 f"exist (pass --allow-random to run with "
+                                 f"random init anyway)")
+            else:
+                print(f"[WARN] checkpoint {ck} missing; random init "
+                      f"(--allow-random)")
+            params[ts] = random_variables(DetectConfig.nc, msc, channels)
+            scales.append(ScaleConfig(ts, ov, checkpoint=ck,
+                                      model_scale=msc))
+            continue
         ckd = load_checkpoint(ck)
         extra = ckd.get("extra", {})
         ck_ch = extra.get("channels")
@@ -203,7 +415,6 @@ def read_scales(triples, channels: int = 3, model_scale: str = "x"
             raise ValueError(f"checkpoint {ck} was trained with channels="
                              f"{ck_ch} but --channels {channels} was "
                              f"requested")
-        msc = model_scale
         ck_sc = extra.get("model_scale")
         if ck_sc and ck_sc != msc:
             print(f"[detect] scale {ts}: using the checkpoint's recorded "
@@ -222,10 +433,12 @@ def read_scales(triples, channels: int = 3, model_scale: str = "x"
 
 
 def build_detector(triples, channels: int = 3, model_scale: str = "x",
-                   device=None, **cfg_fields) -> TiledDetector:
+                   device=None, allow_random: bool = False, **cfg_fields
+                   ) -> TiledDetector:
     """A detector over ``(tile_size, overlap, checkpoint)`` triples (see
     ``read_scales``); ``cfg_fields`` set other ``DetectConfig`` fields."""
-    scales, params = read_scales(triples, channels, model_scale)
+    scales, params = read_scales(triples, channels, model_scale,
+                                 allow_random)
     cfg = DetectConfig(scales=scales, channels=channels, **cfg_fields)
     return TiledDetector(cfg, params, device=device)
 
@@ -252,12 +465,30 @@ def draw_detections(image_bgr: np.ndarray, dets: np.ndarray) -> np.ndarray:
     return out
 
 
+def write_outputs(image_bgr: np.ndarray, image_path: str, result: dict,
+                  output_dir: str, store: dict | None = None) -> None:
+    """``{stem}_detected.jpg`` and ``{stem}.xlsx`` of one map's result in
+    ``output_dir``, and the rows the metrics need in ``store`` ('pr', and
+    'map' under ``calculate_metrics``) (`Detect_OBB.py:293-345`)."""
+    import cv2
+
+    merged = result["merged_for_pr"]
+    stem = os.path.splitext(os.path.basename(image_path))[0]
+    os.makedirs(output_dir, exist_ok=True)
+    cv2.imwrite(os.path.join(output_dir, f"{stem}_detected.jpg"),
+                draw_detections(image_bgr, merged))
+    export_xlsx(os.path.join(output_dir, f"{stem}.xlsx"), merged)
+    if store is not None:
+        store.setdefault("pr", {})[image_path] = merged
+        if "merged_for_map" in result:
+            store.setdefault("map", {})[image_path] = result[
+                "merged_for_map"]
+
+
 def process_image(detector: TiledDetector, image_path: str, output_dir: str,
                   store: dict | None = None) -> dict:
-    """Detect, draw and export one image (`Detect_OBB.py:268-345`):
-    ``{stem}_detected.jpg`` and ``{stem}.xlsx`` in ``output_dir``, and the
-    rows the metrics need in ``store`` ('pr', and 'map' under
-    ``calculate_metrics``)."""
+    """Detect, draw and export one image (`Detect_OBB.py:268-345`): the
+    outputs of ``write_outputs``."""
     import cv2
 
     t0 = time.time()
@@ -267,20 +498,8 @@ def process_image(detector: TiledDetector, image_path: str, output_dir: str,
         return {}
 
     result = detector.detect_image(image)
-    merged = result["merged_for_pr"]
     elapsed = time.time() - t0
     print(f"--- {elapsed:.3f} seconds ---")
-
-    stem = os.path.splitext(os.path.basename(image_path))[0]
-    os.makedirs(output_dir, exist_ok=True)
-    cv2.imwrite(os.path.join(output_dir, f"{stem}_detected.jpg"),
-                draw_detections(image, merged))
-    export_xlsx(os.path.join(output_dir, f"{stem}.xlsx"), merged)
-
-    if store is not None:
-        store.setdefault("pr", {})[image_path] = merged
-        if "merged_for_map" in result:
-            store.setdefault("map", {})[image_path] = result[
-                "merged_for_map"]
+    write_outputs(image, image_path, result, output_dir, store)
     result["seconds"] = elapsed
     return result

@@ -220,3 +220,163 @@ def load_state(model: torch.nn.Module, state: dict) -> None:
     if missing or res.unexpected_keys:
         raise KeyError(f"state dict mismatch: missing {missing[:8]}, "
                        f"unexpected {res.unexpected_keys[:8]}")
+
+
+# ---------------------------------------------------------------------------
+# Ultralytics checkpoints: ``convert`` and its inverse
+# ---------------------------------------------------------------------------
+
+_CONV_BN_TAILS = {"conv.weight": "kernel", "conv.bias": "bias",
+                  "bn.weight": "scale", "bn.bias": "bn_bias",
+                  "bn.running_mean": "mean", "bn.running_var": "var"}
+_TAIL_PARTS = ("conv", "bn", "weight", "bias", "running_mean", "running_var")
+
+
+def _ultralytics_key_to_flax(key: str) -> tuple[list[str], str] | None:
+    """One ultralytics state-dict key -> (flax path, kind), the JAX
+    package's ``convert`` parser: kind is 'kernel', 'bias', 'scale',
+    'bn_bias', 'mean' or 'var'; None for a key the model has no array for
+    (``num_batches_tracked``, the upsamples, the fixed DFL conv)."""
+    if key.endswith("num_batches_tracked"):
+        return None
+    key = re.sub(r"^model\.", "", key)
+    m = re.match(r"^(\d+)\.(.*)$", key)
+    if not m:
+        return None
+    layer, rest = int(m.group(1)), m.group(2)
+    if layer in (11, 14):  # Upsample: no params
+        return None
+    path = [f"l{layer}"]
+    if layer == 23:
+        # the head: cv2/cv3/cv4 . level . stage . ...
+        hm = re.match(r"^cv([234])\.(\d+)\.(\d+)\.(.*)$", rest)
+        if hm is None:
+            return None  # dfl.conv.weight: fixed bins
+        branch, lvl, stage, tail = hm.groups()
+        if tail in ("weight", "bias"):
+            # the final plain Conv2d
+            path.append(f"cv{branch}_{lvl}_{stage}")
+            return path, ("kernel" if tail == "weight" else "bias")
+        if branch == "3":
+            # cv3.{lvl}.{a}.{b}.<ConvBN tail>: (DWConv, Conv) pairs
+            sm = re.match(r"^(\d+)\.(.*)$", tail)
+            if sm is None:
+                return None
+            sub, tail = sm.groups()
+            path.append(f"cv3_{lvl}_{stage}_{sub}")
+            if sub == "0":  # the DWConv wraps its ConvBN under 'dw'
+                path.append("dw")
+        else:
+            path.append(f"cv{branch}_{lvl}_{stage}")
+        rest = tail
+    else:
+        # the module tree: cvN / m.J / attn / ffn.K / qkv / proj / pe
+        parts = rest.split(".")
+        rest = None
+        i = 0
+        while i < len(parts):
+            p = parts[i]
+            if p in ("m", "ffn") and i + 1 < len(parts) \
+                    and parts[i + 1].isdigit():
+                path.append(f"{p}_{parts[i + 1]}")
+                i += 2
+            elif p in _TAIL_PARTS:
+                rest = ".".join(parts[i:])
+                break
+            else:
+                path.append(p)
+                i += 1
+        if rest is None:
+            return None
+    kind = _CONV_BN_TAILS.get(rest)
+    if kind is None:
+        return None
+    return path + (["conv"] if kind in ("kernel", "bias") else ["bn"]), kind
+
+
+def convert_state_dict(sd: dict, reverse_stem_channels: bool = False
+                       ) -> dict:
+    """Ultralytics state dict {key: numpy array} -> flax {'params',
+    'batch_stats'} trees (the JAX package's ``convert_state_dict``): conv
+    weights OIHW -> HWIO (depthwise [C, 1, kh, kw] -> [kh, kw, 1, C]), the
+    stem's input channels reversed for a 4-channel model, BN ``weight`` and
+    ``bias`` -> ``scale`` and ``bias``, the running statistics -> ``mean``
+    and ``var``. Keys the model has no array for are skipped, and every
+    array keeps its dtype."""
+    params: dict = {}
+    stats: dict = {}
+    leaf = {"kernel": (params, "kernel"), "bias": (params, "bias"),
+            "scale": (params, "scale"), "bn_bias": (params, "bias"),
+            "mean": (stats, "mean"), "var": (stats, "var")}
+    for key, val in sd.items():
+        trans = _ultralytics_key_to_flax(key)
+        if trans is None:
+            continue
+        path, kind = trans
+        v = np.asarray(val)
+        if kind == "kernel":
+            v = v.transpose(2, 3, 1, 0)
+            if reverse_stem_channels and path[0] == "l0":
+                v = v[:, :, ::-1, :]
+        tree, name = leaf[kind]
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node.setdefault(path[-1], {})[name] = v
+    return {"params": params, "batch_stats": stats}
+
+
+def _flatten(tree: dict, prefix: tuple = ()) -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = v
+    return out
+
+
+def validate_against(variables_converted: dict, variables_model: dict
+                     ) -> dict:
+    """Coverage of a model's flax variables by converted ones:
+    {'matched': n, 'missing': [path], 'extra': [path], 'mismatched':
+    [(path, converted shape, model shape)]}. The model's variables are
+    ``jax_trees_from_torch_state`` of a fresh ``YOLO11OBB`` of the target
+    shape."""
+    conv = _flatten(variables_converted["params"])
+    conv.update(_flatten(variables_converted["batch_stats"]))
+    ref = _flatten(dict(variables_model["params"]))
+    ref.update(_flatten(dict(variables_model.get("batch_stats", {}))))
+    missing = [k for k in ref if k not in conv]
+    extra = [k for k in conv if k not in ref]
+    mismatched = [(k, tuple(np.shape(conv[k])), tuple(np.shape(ref[k])))
+                  for k in ref
+                  if k in conv and np.shape(conv[k]) != np.shape(ref[k])]
+    return {"matched": len(ref) - len(missing), "missing": missing,
+            "extra": extra, "mismatched": mismatched}
+
+
+def export_state_dict(variables: dict, reverse_stem_channels: bool = False
+                      ) -> dict:
+    """The inverse of ``convert_state_dict``: flax variables ->
+    ultralytics-keyed {key: numpy array}, each array in its own dtype."""
+    out: dict = {}
+
+    def walk(tree, path):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, path + [k])
+                continue
+            key = _flax_path_to_torch(path + [k])
+            if key is None:
+                continue
+            val = np.asarray(v)
+            if k == "kernel":  # HWIO -> OIHW
+                if reverse_stem_channels and path and path[0] == "l0":
+                    val = val[:, :, ::-1, :]
+                val = val.transpose(3, 2, 0, 1)
+            out[key] = val
+
+    walk(dict(variables["params"]), [])
+    walk(dict(variables.get("batch_stats", {})), [])
+    return out

@@ -1,8 +1,8 @@
 """DT-Edge 4th-channel synthesis, batched on the device.
 
 Port of the JAX package's ``ops/dtedge.py`` (`Detect_OBB.py:87-133`):
-multi-scale Scharr gradient magnitude -> percentile binarize -> cross
-morphological open -> exact L2 distance transform of the non-edge mask
+multi-scale Scharr gradient magnitude -> binarize (percentile or Otsu) ->
+cross morphological open -> exact L2 distance transform of the non-edge mask
 (``edt.py``, the CUDA kernels on the card) -> 1-99 percentile normalize ->
 soft map exp(-d/tau) blended 0.7*soft + 0.3*minmax(acc) -> uint8.
 
@@ -90,6 +90,47 @@ def percentile_hw(x: torch.Tensor, qs) -> torch.Tensor:
     return torch.stack(out, dim=-1) + 0.0
 
 
+def _cumsum_256_f32(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive float32 cumulative sum over the last axis of [..., 256],
+    rounded in the order XLA's CPU compiler gives ``jnp.cumsum`` of 256:
+    a running sum inside each block of 16, a running sum of the block
+    totals before each block, and one add of the two. Each step is one
+    elementwise float32 add, so every device rounds alike."""
+    blocks = x.reshape(*x.shape[:-1], 16, 16).clone()
+    for k in range(1, 16):
+        blocks[..., k] += blocks[..., k - 1]
+    totals = blocks[..., 15]
+    before = torch.zeros_like(totals)
+    for r in range(1, 16):
+        before[..., r] = before[..., r - 1] + totals[..., r - 1]
+    return (blocks + before[..., None]).reshape(x.shape)
+
+
+def binarize_otsu(acc: torch.Tensor) -> torch.Tensor:
+    """Otsu on the min-max-normalized uint8 histogram of each image of
+    [B, H, W] (`Detect_OBB.py:109-111`): edges are the pixels above the
+    first level that maximizes the between-class variance. The histogram
+    is one ``scatter_add`` over the batch; the cumulative counts and level
+    sums and the variance are float32, summed as the JAX package's
+    ``jnp.cumsum`` sums them (``_cumsum_256_f32``), so the level sums
+    round alike above 2**24 too."""
+    B = acc.shape[0]
+    mn = acc.amin(dim=(-2, -1), keepdim=True)
+    mx = acc.amax(dim=(-2, -1), keepdim=True)
+    a8 = torch.round((acc - mn) / torch.clamp_min(mx - mn, 1e-12) * 255.0)
+    flat = a8.reshape(B, -1).long()
+    hist = torch.zeros((B, 256), dtype=torch.float32, device=acc.device)
+    hist.scatter_add_(1, flat, torch.ones_like(flat, dtype=torch.float32))
+    bins = torch.arange(256, dtype=torch.float32, device=acc.device)
+    w0, m0 = _cumsum_256_f32(torch.stack([hist, hist * bins])).unbind(0)
+    w1 = w0[:, -1:] - w0
+    mu0 = m0 / torch.clamp_min(w0, 1.0)
+    mu1 = (m0[:, -1:] - m0) / torch.clamp_min(w1, 1.0)
+    between = w0 * w1 * (mu0 - mu1) ** 2
+    thr = torch.argmax(between, dim=1).float()   # the first maximum
+    return a8 > thr[:, None, None]
+
+
 def _shift2d(x: torch.Tensor, dy: int, dx: int, fill: bool) -> torch.Tensor:
     out = torch.full_like(x, fill)
     H, W = x.shape[-2:]
@@ -125,12 +166,16 @@ def morph_open_cross(mask: torch.Tensor, iterations: int = 1
 def edge_mask(bgr: torch.Tensor, cfg: DTEdgeConfig = DTEdgeConfig()
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """Edge mask of a batch of BGR uint8 images [B, H, W, 3]: gray ->
-    multi-scale Scharr magnitude -> pixels at or above its ``p_hi``
-    percentile -> cross morphological open. Returns the bool mask
-    [B, H, W] (what the EDT measures distances to) and the magnitude."""
+    multi-scale Scharr magnitude -> Otsu (``bin_method="otsu"``) or the
+    pixels at or above its ``p_hi`` percentile -> cross morphological
+    open. Returns the bool mask [B, H, W] (what the EDT measures distances
+    to) and the magnitude."""
     gray = bgr_to_gray_u8(bgr)
     acc = multi_scale_scharr(gray, cfg.sigmas)
-    edges = acc >= percentile_hw(acc, (cfg.p_hi,))[:, :, None]
+    if cfg.bin_method == "otsu":
+        edges = binarize_otsu(acc)
+    else:
+        edges = acc >= percentile_hw(acc, (cfg.p_hi,))[:, :, None]
     if cfg.morph_open > 0:
         edges = morph_open_cross(edges, cfg.morph_open)
     return edges, acc

@@ -79,17 +79,32 @@ def assign_labels_to_tiles(labels_px: np.ndarray, grid_xy: np.ndarray,
     return out
 
 
-def extract_tiles(image: torch.Tensor, starts_xy: np.ndarray,
-                  tile_size: int) -> torch.Tensor:
-    """Gather [T, ts, ts, C] tiles from image [H, W, C]; area outside the
-    image is PAD_VALUE. starts_xy: [T, 2] (x0, y0)."""
+def pad_for_tiles(image: torch.Tensor, tile_size: int) -> torch.Tensor:
+    """image [H, W, C] with ``tile_size`` rows and columns of PAD_VALUE
+    below and to the right, so every tile of its grid is in bounds."""
     ts = tile_size
     H, W, C = image.shape
     padded = torch.full((H + ts, W + ts, C), PAD_VALUE, dtype=image.dtype,
                         device=image.device)
     padded[:H, :W] = image
+    return padded
+
+
+def gather_tiles(padded: torch.Tensor, starts_xy: np.ndarray,
+                 tile_size: int) -> torch.Tensor:
+    """[T, ts, ts, C] tiles of a ``pad_for_tiles`` image at starts_xy
+    [T, 2] (x0, y0)."""
+    ts = tile_size
     return torch.stack([padded[y:y + ts, x:x + ts]
                         for x, y in np.asarray(starts_xy)[:, :2].tolist()])
+
+
+def extract_tiles(image: torch.Tensor, starts_xy: np.ndarray,
+                  tile_size: int) -> torch.Tensor:
+    """Gather [T, ts, ts, C] tiles from image [H, W, C]; area outside the
+    image is PAD_VALUE. starts_xy: [T, 2] (x0, y0)."""
+    return gather_tiles(pad_for_tiles(image, tile_size), starts_xy,
+                        tile_size)
 
 
 def stitch_to_global(corners8_tile: torch.Tensor, starts_xy: torch.Tensor

@@ -146,16 +146,43 @@ def init_head_biases(model: YOLO11OBB, nc: int) -> None:
                 math.log(5.0 / nc / (640.0 / s) ** 2))
 
 
+# flax's truncated normal in [-2, 2] has this standard deviation; lecun
+# normal divides it out
+_TRUNC_STD = 0.87962566103423978
+
+
+def fresh_model(nc: int, scale: str, channels: int, seed: int
+                ) -> YOLO11OBB:
+    """A freshly initialized model on the CPU, by the JAX package's rule
+    (flax's defaults, the values drawn from a generator seeded by
+    ``seed``): every conv kernel lecun normal (a normal truncated at two
+    standard deviations, variance 1 / fan_in), every conv bias 0, the
+    BatchNorm scales 1, biases 0 and statistics 0 and 1, then the engine's
+    head biases. torch's default conv init has a third of that variance,
+    which fades the signal over the network's depth until a random model's
+    scores hardly depend on its input."""
+    torch.manual_seed(seed)
+    model = YOLO11OBB(nc=nc, scale=scale, in_channels=channels)
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.Conv2d):
+                std = 1.0 / math.sqrt(m.weight[0].numel()) / _TRUNC_STD
+                torch.nn.init.trunc_normal_(m.weight, std=std, a=-2 * std,
+                                            b=2 * std, generator=gen)
+                if m.bias is not None:
+                    m.bias.zero_()
+    init_head_biases(model, nc)
+    return model
+
+
 def create_train_state(cfg: TrainConfig, steps_per_epoch: int = 100,
                        device=None) -> TrainState:
     """A freshly initialized model (seeded by ``cfg.seed``) on ``device``
     (the CUDA card unless ``device="cpu"``), its EMA, the optimizer."""
     dev = resolve_device(device)
-    torch.manual_seed(cfg.seed)
-    model = YOLO11OBB(nc=cfg.nc, scale=cfg.model_scale,
-                      in_channels=cfg.channels)
-    init_head_biases(model, cfg.nc)
-    model = model.to(dev).train()
+    model = fresh_model(cfg.nc, cfg.model_scale, cfg.channels,
+                        cfg.seed).to(dev).train()
     return TrainState(model, make_optimizer(model, cfg),
                       make_sched_vector(cfg, steps_per_epoch))
 

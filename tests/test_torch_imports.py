@@ -26,15 +26,18 @@ PORT_MODULES = [
     "oriented_object_detection_tpu_torch.eval.val",
     "oriented_object_detection_tpu_torch.infer.fusion",
     "oriented_object_detection_tpu_torch.infer.pipeline",
+    "oriented_object_detection_tpu_torch.models.calibrate",
     "oriented_object_detection_tpu_torch.models.decode",
     "oriented_object_detection_tpu_torch.models.fold",
     "oriented_object_detection_tpu_torch.models.layers",
+    "oriented_object_detection_tpu_torch.models.pt_reader",
     "oriented_object_detection_tpu_torch.models.weights",
     "oriented_object_detection_tpu_torch.models.yolo11_obb",
     "oriented_object_detection_tpu_torch.ops.dtedge",
     "oriented_object_detection_tpu_torch.ops.edt",
     "oriented_object_detection_tpu_torch.ops.augment",
     "oriented_object_detection_tpu_torch.ops.geometry",
+    "oriented_object_detection_tpu_torch.ops.image",
     "oriented_object_detection_tpu_torch.ops.nms",
     "oriented_object_detection_tpu_torch.ops.tiling",
     "oriented_object_detection_tpu_torch.ops.warp",
@@ -44,6 +47,7 @@ PORT_MODULES = [
     "oriented_object_detection_tpu_torch.utils.build",
     "oriented_object_detection_tpu_torch.utils.native",
     "oriented_object_detection_tpu_torch.utils.plots",
+    "oriented_object_detection_tpu_torch.utils.profiling",
     "oriented_object_detection_tpu_torch.utils.runtime",
     "oriented_object_detection_tpu_torch.utils.xlsx",
     "chip_smoke",
@@ -104,6 +108,23 @@ def test_port_imports_no_jax_cv2_or_jax_package():
                 2, np.random.RandomState(0)), val_fn=lambda s:
                 validate_tiles(s.eval_model(), ds, cfg), ckpt_dir=tmp)
             assert os.path.exists(tmp + "/last.ckpt")
+            # the new modules at work: a .pt read back, a letterbox, a
+            # density calibration, a timed stage
+            from oriented_object_detection_tpu_torch.models import (
+                calibrate, pt_reader)
+            from oriented_object_detection_tpu_torch.models.yolo11_obb \
+                import YOLO11OBB
+            from oriented_object_detection_tpu_torch.ops import image
+            from oriented_object_detection_tpu_torch.utils import profiling
+            torch.save({{"w": torch.ones(3).half()}}, tmp + "/w.pt")
+            assert pt_reader.read_pt_state_dict(tmp + "/w.pt")["w"].sum() == 3
+            with profiling.timed("letterbox"):
+                image.letterbox(torch.zeros((5, 7, 3)), 8)
+            from oriented_object_detection_tpu_torch.infer.pipeline import (
+                random_variables)
+            calibrate.calibrate_density(YOLO11OBB(scale="n"),
+                                        random_variables(12, "n", 3), 32, 3,
+                                        device="cpu")
         pkg = "oriented_object_detection_tpu"
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "flax", "cv2",
@@ -121,6 +142,7 @@ IMPORTED_INSIDE = {
     "cv2": {("cli.py", "_detect"), ("data/labels.py", "load_gt_as_pixels"),
             ("infer/pipeline.py", "draw_detections"),
             ("infer/pipeline.py", "process_image"),
+            ("infer/pipeline.py", "write_outputs"),
             ("data/dataset.py", "build_train_tiles"),
             ("data/dataset.py", "save_selected_empty_tiles"),
             ("data/dataset.py", "build_val_tiles"),
