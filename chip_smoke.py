@@ -82,6 +82,26 @@ Phases, each printing one JSON line (warnings go to stderr):
              2 steps of YOLO11n-OBB 4ch from ``train416_4ch.ckpt``; last one
              n-scale step at tile 64, batch 2 from the same weights and
              batch on the card and on the CPU, held together.
+13. dist    - data parallelism across processes (``--dist``), each run of
+             it held to the one-process run of the same work on the same
+             card: the 4ch build of the train tiles (process 0 alone
+             launches K1/K2), the sharded validation of the
+             ``train416_x.ckpt`` warm start (the same fitness on every
+             process, within 1e-6), ``fit`` of YOLO11x-OBB 416 for 3 steps
+             of a global batch of 16 with mosaic (losses within 1e-4
+             relative, parameters, EMA and BN statistics within 1e-4 of
+             each leaf's largest value, the processes bit-equal, process 0
+             alone writing), and ``detect_images`` of the 4ch slice and of
+             ``detect_dual`` over two maps (rows paired, K1/K2 launched on
+             every process and bit-equal to their plain versions). One
+             card: NCCL at world 1 and gloo at world 2 (NCCL puts no two
+             processes on one card); more cards: NCCL across up to 4. Then
+             the run's ``last.ckpt`` detects, and ``cli.py detect --dist``
+             runs in processes of its own (``--coordinator/
+             --num-processes/--process-id``; a numpy stand-in for cv2,
+             which the card's machine lacks): process 0 alone writes.
+             Seconds per step, collectives per step and peak memory per
+             process, and the phase's seconds.
 
 Then the kernel summary line (the slice-mask times, and each kernel's
 launches by phase), the card's name and power limit again, and last
@@ -1269,16 +1289,21 @@ def write_split(tmp: str, split: str, seeds, ts: int, ov: int,
 @contextlib.contextmanager
 def step_recorder(torch, TR):
     """Wraps ``trainer.train_step``, which ``fit`` calls, to keep each
-    step's wall seconds (device synchronized at both ends) and metrics."""
+    step's wall seconds (device synchronized at both ends), metrics and
+    collective calls (``parallel/distributed.py``)."""
+    from oriented_object_detection_tpu_torch.parallel import distributed as PD
+
     steps, inner = [], TR.train_step
 
     def recorded(state, batch, cfg):
         torch.cuda.synchronize()
+        calls = sum(PD.COLLECTIVES.values())
         t0 = time.perf_counter()
         m = inner(state, batch, cfg)
         torch.cuda.synchronize()
-        steps.append((time.perf_counter() - t0,
-                      dict(zip(TR.METRIC_KEYS, m.tolist()))))
+        steps.append({"seconds": time.perf_counter() - t0,
+                      "metrics": dict(zip(TR.METRIC_KEYS, m.tolist())),
+                      "collectives": sum(PD.COLLECTIVES.values()) - calls})
         return m
 
     TR.train_step = recorded
@@ -1291,7 +1316,7 @@ def step_recorder(torch, TR):
 def check_steps(steps, n: int, label: str) -> None:
     if len(steps) != n:
         raise AssertionError(f"{label}: {len(steps)} steps, not {n}")
-    for sec, m in steps:
+    for m in (s["metrics"] for s in steps):
         if not all(np.isfinite(v) for v in m.values()):
             raise AssertionError(f"{label}: non-finite loss {m}")
         if m["fg_count"] <= 0:
@@ -1442,13 +1467,13 @@ def train_3ch(torch, tmp: str, smi: str) -> tuple:
         bs, np.random.RandomState(2)), 3))
     flops = step_flops(torch, TR, state, batches[0], cfg)
     prof = profile_steps(torch, TR, state, batches[1:], cfg)
-    warm = [sec for sec, _ in steps[1:]]
+    warm = [s["seconds"] for s in steps[1:]]
     return {"model_scale": cfg.model_scale, "channels": 3, "tile_size": ts,
             "overlap": ov, "batch": bs, "train_tiles": len(train_ds),
             "val_tiles": len(val_ds), "steps": len(steps),
             "seconds_per_step": statistics.median(warm),
-            "seconds_per_step_all": [sec for sec, _ in steps],
-            "losses": [m for _, m in steps],
+            "seconds_per_step_all": [s["seconds"] for s in steps],
+            "losses": [s["metrics"] for s in steps],
             "peak_memory_gib": peak / 2 ** 30, "nvidia_smi": smi,
             "moved": {"params": moved_params, "bn_statistics": moved_stats,
                       "ema": moved_ema},
@@ -1513,8 +1538,8 @@ def train_4ch(torch, E, tmp: str, bgr: np.ndarray) -> dict:
     return {"tiles": len(four), "launches": launches, "dt_bit_equal": True,
             "model_scale": "n", "channels": 4, "tile_size": ts, "batch": bs,
             "steps": len(steps),
-            "seconds_per_step_all": [sec for sec, _ in steps],
-            "losses": [m for _, m in steps]}
+            "seconds_per_step_all": [s["seconds"] for s in steps],
+            "losses": [s["metrics"] for s in steps]}
 
 
 def max_rel(a: np.ndarray, b: np.ndarray) -> float:
@@ -1593,6 +1618,482 @@ def phase_train(torch, E, smi: str) -> dict:
             "seconds_per_step": x3["seconds_per_step"]}
 
 
+DIST_SEEDS = (41, 42)        # the two 1024x1024 maps detected under --dist
+DIST_STEPS = 3
+# each data-parallel run against the one-process run on the same card. In
+# float64 (a control of the training semantics) the per-step losses within
+# 1e-4 relative, the parameters, EMA and BN statistics after the steps
+# within 1e-4 of each leaf's largest value. In float32 the losses and BN
+# statistics the same, the parameters and EMA within 1e-3: the bias group's
+# warmup lr (0.1) moves the head biases by up to 3 in 3 steps, and splitting
+# the batch (other sums, other cuDNN algorithms at 8 rows) moves them by
+# up to 2.5e-4 of their size (PERF.md, section 6), as the card's step against
+# the CPU's is held to 1e-3 (``STEP_RTOL``). The sharded validation's
+# fitness within 1e-6.
+DIST_TOL = {"float64": {"loss": 1e-4, "params": 1e-4, "ema_params": 1e-4,
+                        "batch_stats": 1e-4},
+            "float32": {"loss": 1e-4, "params": 1e-3, "ema_params": 1e-3,
+                        "batch_stats": 1e-4},
+            "fitness": 1e-6}
+DIST_TIMEOUT_S = 600
+# the card's machine has no cv2: the CLI run of the dist phase imports this
+# module in its place, which reads and writes arrays in numpy's format
+# whatever the file's suffix and draws nothing
+CV2_STAND_IN = """import numpy as np
+FONT_HERSHEY_SIMPLEX, LINE_AA = 0, 16
+def imread(path, flags=None):
+    try:
+        return np.load(path)
+    except (OSError, ValueError):
+        return None
+def imwrite(path, img, params=None):
+    with open(path, "wb") as f:
+        np.save(f, np.asarray(img))
+    return True
+def polylines(img, *args, **kwargs):
+    return img
+def putText(img, *args, **kwargs):
+    return img
+"""
+
+
+def dist_inputs(tmp: str) -> str:
+    """The train and val tiles of the train phase (``TRAIN``), their BGR
+    tiles for the 4ch build, the ``DIST_SEEDS`` maps and the configuration
+    (``TRAIN``, the 4ch checkpoint, ``DUAL``), pickled once for every
+    process of the phase. Returns the pickle's path."""
+    import pickle
+
+    ts, ov, size = (TRAIN[k] for k in ("tile_size", "overlap", "map_size"))
+    lst, pixels, bgr = write_split(tmp, "train", TRAIN_SEEDS, ts, ov, size)
+    vlst, vpixels, _ = write_split(tmp, "val", (VAL_SEED,), ts, ov, size)
+    path = os.path.join(tmp, "dist_inputs.pkl")
+    with open(path, "wb") as f:
+        pickle.dump({"list": lst, "pixels": pixels, "vlist": vlst,
+                     "vpixels": vpixels, "bgr": bgr,
+                     "maps": [synthetic_map(s)[0] for s in DIST_SEEDS],
+                     "train": TRAIN, "ckpt4": CKPT, "dual": DUAL}, f)
+    return path
+
+
+def dist_train(torch, inputs: dict, run_dir: str, dtype: str) -> dict:
+    """``fit`` for ``DIST_STEPS`` steps of the ``TRAIN`` model on this
+    process's rows of each global batch with mosaic, warm-started (the run
+    directory ``run_dir/rank{r}``), in ``dtype``; in float32 with the
+    sharded validation of the warm start and of the epoch."""
+    from oriented_object_detection_tpu_torch.config import TrainConfig
+    from oriented_object_detection_tpu_torch.data.loader import TileDataset
+    from oriented_object_detection_tpu_torch.eval.val import validate_tiles
+    from oriented_object_detection_tpu_torch.parallel import distributed as PD
+    from oriented_object_detection_tpu_torch.parallel import mesh as PM
+    from oriented_object_detection_tpu_torch.train import trainer as TR
+
+    train = inputs["train"]
+    ts, bs = train["tile_size"], train["batch"]
+    cfg = TrainConfig(tile_size=ts, overlap=train["overlap"], batch_size=bs,
+                      model_scale=train["scale"], channels=3, epochs=1,
+                      plots=False)
+    train_ds = TileDataset(inputs["list"], ts, 3,
+                           reader=inputs["pixels"].__getitem__)
+    val_ds = TileDataset(inputs["vlist"], ts, 3,
+                         reader=inputs["vpixels"].__getitem__)
+    state = TR.create_train_state(cfg, len(train_ds) // bs)
+    TR.warm_start_state(train["ckpt"], state, expect={
+        "model_scale": train["scale"], "channels": 3})
+    out, fits, val_fn = {}, [], None
+    if dtype == "float64":
+        state.model.double()
+        state.ema.double()
+    else:
+        out["fitness_warm_start"] = validate_tiles(
+            state.eval_model(), val_ds, cfg, shard_across_processes=True)
+
+        def val_fn(s):
+            fits.append(validate_tiles(s.eval_model(), val_ds, cfg,
+                                       shard_across_processes=True))
+            return fits[-1]
+
+    rows = PM.batch_rows(bs, PD.rank(), PD.world())
+    rng = np.random.RandomState(cfg.seed)
+
+    def batches(epoch):
+        for b in itertools.islice(train_ds.batches(bs, rng, rows=rows),
+                                  DIST_STEPS):
+            yield {**b, "images": b["images"].to(getattr(torch, dtype))}
+
+    torch.cuda.reset_peak_memory_stats()
+    with step_recorder(torch, TR) as steps:
+        TR.fit(state, cfg, batches, val_fn=val_fn,
+               ckpt_dir=os.path.join(run_dir, f"rank{PD.rank()}"))
+    out.update(steps=steps, fitness=fits, rows=list(rows),
+               peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               checksums=PD.tensor_checksums(list(TR.state_tensors(
+                   state).values())).cpu().numpy())
+    return out
+
+
+def dist_run(torch, E, inputs: dict, run_dir: str,
+             dtype: str = "float32") -> dict:
+    """The dist phase's work in this process, on its share, in a
+    data-parallel group or (the reference) alone. In float32: the 4ch build
+    of the train tiles (process 0 alone, K1/K2 held to their plain
+    versions), ``dist_train`` and ``detect_images`` of the 4ch slice (K1/K2
+    on this process's tiles, held to their plain versions) and of
+    ``detect_dual`` over the ``DIST_SEEDS`` maps. In float64:
+    ``dist_train`` alone."""
+    from oriented_object_detection_tpu_torch.data import dataset as DS
+    from oriented_object_detection_tpu_torch.infer.pipeline import (
+        build_detector)
+    from oriented_object_detection_tpu_torch.parallel import distributed as PD
+
+    out = {"rank": PD.rank(), "world": PD.world(), "dtype": dtype,
+           "backend": torch.distributed.get_backend() if PD.active()
+           else None, "device": torch.cuda.current_device()}
+    if dtype == "float64":
+        return {**out, **dist_train(torch, inputs, run_dir, dtype)}
+    bs = inputs["train"]["batch"]
+    with PathKernels(E) as rec:
+        reset_launches(E)
+        if PD.is_main():
+            tiles = torch.from_numpy(inputs["bgr"]).cuda()
+            for i in range(0, len(tiles), bs):
+                DS.tiles_to_4ch(tiles[i:i + bs])
+        torch.cuda.synchronize()
+        out["build_launches"] = dict(E.LAUNCHES)
+    out["build_checked"] = len(rec.check(torch, "dist 4ch build"))
+    PD.barrier()
+    out.update(dist_train(torch, inputs, run_dir, dtype))
+
+    det = build_detector([(416, 100, inputs["ckpt4"])], channels=4)
+    with PathKernels(E) as rec:
+        reset_launches(E)
+        out["detect_4ch"] = det.detect_images(inputs["maps"])
+        torch.cuda.synchronize()
+        out["detect_4ch_launches"] = dict(E.LAUNCHES)
+    out["detect_4ch_checked"] = rec.check(torch, "dist 4ch detect")
+    del det
+    det = build_detector(inputs["dual"])
+    out["detect_dual"] = det.detect_images(inputs["maps"])
+    return out
+
+
+def dist_worker(spec: dict) -> int:
+    """One process of a data-parallel run of the dist phase (``main`` with
+    ``--dist-worker``): joins the group, runs ``dist_run`` and pickles its
+    results."""
+    import pickle
+
+    import torch
+
+    sys.path.insert(0, REPO)
+    from oriented_object_detection_tpu_torch.ops import edt as E
+    from oriented_object_detection_tpu_torch.parallel import distributed as PD
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True    # as the parent's runs
+    PD.initialize(spec["coordinator"], spec["world"], spec["rank"],
+                  backend=spec["backend"])
+    with open(spec["inputs"], "rb") as f:
+        inputs = pickle.load(f)
+    out = dist_run(torch, E, inputs, spec["run_dir"], spec["dtype"])
+    PD.shutdown()
+    with open(spec["out"], "wb") as f:
+        pickle.dump(out, f)
+    return 0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_processes(cmds: list, logs: list, env=None) -> float:
+    """Run the commands together to their end; any process that fails, or
+    the time limit, stops them all and raises with the logs' tails.
+    Returns the wall seconds."""
+    t0 = time.perf_counter()
+    files = [open(p, "w") for p in logs]
+    procs = [subprocess.Popen(c, stdout=f, stderr=subprocess.STDOUT,
+                              cwd=REPO, env=env) for c, f in zip(cmds, files)]
+    try:
+        while any(p.poll() is None for p in procs):
+            failed = [p for p in procs if p.returncode not in (None, 0)]
+            if failed or time.perf_counter() - t0 > DIST_TIMEOUT_S:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in files:
+            f.close()
+    if any(p.returncode != 0 for p in procs):
+        tails = []
+        for p, path in zip(procs, logs):
+            with open(path) as f:
+                tails.append(f"--- rc {p.returncode}, {path}\n"
+                             + f.read()[-3000:])
+        raise AssertionError("a process of the dist phase failed:\n"
+                             + "\n".join(tails))
+    return time.perf_counter() - t0
+
+
+def dist_group_run(tmp: str, inputs: str, backend: str, world: int,
+                   dtype: str) -> tuple:
+    """``world`` processes of ``dist_run`` joined by ``backend``: (results
+    per rank, wall seconds, run directory)."""
+    import pickle
+
+    label = f"{backend}{world}_{dtype}"
+    run_dir = os.path.join(tmp, f"run_{label}")
+    coord = f"localhost:{free_port()}"
+    specs = [{"coordinator": coord, "world": world, "rank": r,
+              "backend": backend, "inputs": inputs, "run_dir": run_dir,
+              "dtype": dtype, "out": os.path.join(tmp, f"{label}_{r}.pkl")}
+             for r in range(world)]
+    wall = run_processes(
+        [[sys.executable, os.path.abspath(__file__), "--dist-worker",
+          json.dumps(s)] for s in specs],
+        [os.path.join(tmp, f"{label}_{r}.log") for r in range(world)])
+    res = []
+    for s in specs:
+        with open(s["out"], "rb") as f:
+            res.append(pickle.load(f))
+    return res, wall, run_dir
+
+
+def compare_train(label: str, res: list, ref: dict, run_dir: str,
+                  ref_dir: str) -> tuple:
+    """The training of one data-parallel run against the one-process run
+    in the same dtype: (numbers, failures)."""
+    from oriented_object_detection_tpu_torch.models.weights import (
+        load_checkpoint)
+
+    tol, fails = DIST_TOL[ref["dtype"]], []
+    world = len(res)
+    losses = [max(abs(a["metrics"][k] - b["metrics"][k])
+                  / max(abs(b["metrics"][k]), 1e-6)
+                  for k in ("loss", "box", "cls", "dfl"))
+              for a, b in zip(res[0]["steps"], ref["steps"])]
+    if len(res[0]["steps"]) != DIST_STEPS or max(losses) > tol["loss"]:
+        fails.append(f"{label}: step losses off by {losses}")
+    got = load_checkpoint(os.path.join(run_dir, "rank0", "last.ckpt"))
+    one = load_checkpoint(os.path.join(ref_dir, "rank0", "last.ckpt"))
+    state = {}
+    for key in ("params", "ema_params", "batch_stats"):
+        ref_leaves = dict(tree_leaves(one[key]))
+        worst = sorted(((max_rel(ref_leaves[k], v), k, float(np.abs(
+            ref_leaves[k]).max())) for k, v in tree_leaves(got[key])))[-3:]
+        state[key] = [{"max_rel": e, "leaf": k, "leaf_max": m}
+                      for e, k, m in reversed(worst)]
+        if worst[-1][0] > tol[key]:
+            fails.append(f"{label}: {key} off by {worst[-1]}")
+    same = all(np.array_equal(r["checksums"], res[0]["checksums"])
+               for r in res)
+    if not same:
+        fails.append(f"{label}: the processes' states differ")
+    others = [r for r in range(1, world)
+              if os.path.exists(os.path.join(run_dir, f"rank{r}"))]
+    if others:
+        fails.append(f"{label}: processes {others} wrote a run directory")
+    seconds = [[s["seconds"] for s in r["steps"]] for r in res]
+    numbers = {
+        "world": world, "backend": res[0]["backend"], "dtype": ref["dtype"],
+        "devices": [r["device"] for r in res],
+        "rows_per_process": [r["rows"] for r in res],
+        "seconds_per_step": statistics.median(seconds[0][1:]),
+        "seconds_per_step_by_rank": seconds,
+        "collectives_per_step": [s["collectives"] for s in res[0]["steps"]],
+        "peak_memory_gib_by_rank": [r["peak_memory_gib"] for r in res],
+        "losses": [s["metrics"] for s in res[0]["steps"]],
+        "loss_max_rel": max(losses), "state": state, "tolerance": tol,
+        "bit_equal_to_one_process": max(losses) == 0.0 and all(
+            v[0]["max_rel"] == 0.0 for v in state.values()),
+        "state_bit_equal_across_ranks": same}
+    if numbers["backend"] == "gloo":
+        numbers["seconds_per_step_note"] = (
+            "gloo: every all-reduce crosses the host; no speed reading")
+    return numbers, fails
+
+
+def compare_rest(label: str, res: list, ref: dict) -> tuple:
+    """The float32 run's validation, 4ch build and detection against the
+    one-process run: (numbers, failures)."""
+    from oriented_object_detection_tpu_torch.infer import fusion as F
+
+    fails = []
+    fit = [r["fitness_warm_start"] for r in res]
+    if len(set(fit)) != 1 or abs(fit[0] - ref["fitness_warm_start"]) > \
+            DIST_TOL["fitness"]:
+        fails.append(f"{label}: fitness {fit} against "
+                     f"{ref['fitness_warm_start']}")
+    if len({tuple(r["fitness"]) for r in res}) != 1:
+        fails.append(f"{label}: the epoch's fitness differs between "
+                     f"processes")
+    build = [r["build_launches"] for r in res]
+    if not all(n > 0 for n in build[0].values()) or any(
+            n for b in build[1:] for n in b.values()):
+        fails.append(f"{label}: 4ch build launches {build}")
+    launches = [r["detect_4ch_launches"] for r in res]
+    if not all(n > 0 for b in launches for n in b.values()):
+        fails.append(f"{label}: a process of the 4ch detection launched "
+                     f"no EDT kernel: {launches}")
+    bit_equal = {"4ch": [], "dual": []}
+    try:
+        for r in res:
+            for a, b in zip(r["detect_4ch"], ref["detect_4ch"]):
+                match_rows(a["merged_for_pr"], b["merged_for_pr"])
+                match_rows(b["merged_for_pr"], a["merged_for_pr"])
+                bit_equal["4ch"].append(bool(np.array_equal(
+                    a["merged_for_pr"], b["merged_for_pr"])))
+            for a, b in zip(r["detect_dual"], ref["detect_dual"]):
+                for x, y in ((a, b), (b, a)):
+                    for ts in a["by_scale"]:
+                        match_rows(x["by_scale"][ts], y["by_scale"][ts])
+                    match_rows(x["merged_for_pr"], y["merged_for_pr"],
+                               skip_near=(F.CONS_LOW, F.CONS_HIGH))
+                bit_equal["dual"].append(bool(np.array_equal(
+                    a["merged_for_pr"], b["merged_for_pr"])))
+    except AssertionError as e:
+        fails.append(f"{label}: detection rows: {e}")
+    return {"fitness_warm_start": fit, "fitness": res[0]["fitness"],
+            "build_launches_by_rank": build,
+            "detect_4ch_launches_by_rank": launches,
+            "detect_4ch_kernels_checked": [len(r["detect_4ch_checked"])
+                                           for r in res],
+            "rows_bit_equal_to_one_process": {k: sum(v) for k, v in
+                                              bit_equal.items()},
+            "rows_compared": {k: len(v) for k, v in bit_equal.items()}}, fails
+
+
+def dist_cli(tmp: str, maps: list, backend: str, world: int,
+             want_rows: list) -> dict:
+    """``cli.py detect --dist`` of the 4ch slice over the maps, in
+    ``world`` processes of its own joined through ``--coordinator/
+    --num-processes/--process-id``, each given its own ``--output``: process
+    0 alone writes, one jpg and one xlsx a map holding ``want_rows`` rows."""
+    stand_in = os.path.join(tmp, "cv2_stand_in")
+    os.makedirs(stand_in, exist_ok=True)
+    with open(os.path.join(stand_in, "cv2.py"), "w") as f:
+        f.write(CV2_STAND_IN)
+    src = os.path.join(tmp, "cli_in")
+    os.makedirs(src, exist_ok=True)
+    for i, m in enumerate(maps):
+        with open(os.path.join(src, f"map{i}.png"), "wb") as f:
+            np.save(f, m)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [stand_in, REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    coord = f"localhost:{free_port()}"
+    outs = [os.path.join(tmp, f"cli_out{r}") for r in range(world)]
+    wall = run_processes(
+        [[sys.executable, "-m", "oriented_object_detection_tpu_torch.cli",
+          "detect", "--input", src, "--output", outs[r], "--scales",
+          f"416:100={CKPT}", "--channels", "4", "--dist", "--coordinator",
+          coord, "--num-processes", str(world), "--process-id", str(r),
+          "--dist-backend", backend] for r in range(world)],
+        [os.path.join(tmp, f"cli_rank{r}.log") for r in range(world)],
+        env=env)
+    files = sorted(os.listdir(outs[0]))
+    want = sorted([f"map{i}{s}" for i in range(len(maps))
+                   for s in ("_detected.jpg", ".xlsx")])
+    if files != want:
+        raise AssertionError(f"cli detect --dist wrote {files}")
+    if any(os.path.exists(o) for o in outs[1:]):
+        raise AssertionError("a process other than 0 wrote an output dir")
+    for i, n in enumerate(want_rows):
+        with zipfile.ZipFile(os.path.join(outs[0], f"map{i}.xlsx")) as z:
+            sheet = z.read("xl/worksheets/sheet1.xml").decode()
+        if sheet.count("<row ") != n + 1:
+            raise AssertionError(f"map{i}.xlsx does not hold its {n} rows")
+    return {"world": world, "backend": backend, "wall_s": wall,
+            "files": files, "xlsx_rows": want_rows}
+
+
+def phase_dist(torch, E) -> dict:
+    """Data parallelism across processes (``--dist``) at full width, each
+    run held to the one-process run of the same work on the same card
+    (``dist_run``), with cuDNN's deterministic algorithms, so the runs
+    differ only by how the batch is split. NCCL does not put two
+    processes on one card, so one card runs NCCL at world 1 (its
+    initialization and every collective call of the path) and gloo at
+    world 2, both processes on the card (the split, the gathers, the
+    global statistics, process 0's files); two cards or more run NCCL
+    across them (at most 4). The multi-process training is run again in
+    float64 against a float64 process, which takes float32's rounding out
+    of the comparison. Then the run's ``last.ckpt`` detects and ``cli.py
+    detect --dist`` runs in processes of its own. Any failing process or
+    check fails the phase."""
+    import pickle
+
+    from oriented_object_detection_tpu_torch.infer.pipeline import (
+        build_detector)
+
+    t0 = time.perf_counter()
+    torch.backends.cudnn.deterministic = True
+    cards = torch.cuda.device_count()
+    worlds = [("nccl", min(cards, 4))] if cards > 1 else [("nccl", 1),
+                                                          ("gloo", 2)]
+    fails = []
+    with tempfile.TemporaryDirectory() as tmp:
+        inputs = dist_inputs(tmp)
+        with open(inputs, "rb") as f:
+            data = pickle.load(f)
+        refs = {}
+        for dtype in ("float32", "float64"):
+            ref_dir = os.path.join(tmp, f"run_one_{dtype}")
+            refs[dtype] = (dist_run(torch, E, data, ref_dir, dtype), ref_dir)
+            torch.cuda.empty_cache()
+            ref = refs[dtype][0]
+            emit({"phase": "dist", "part": f"one_process_{dtype}",
+                  "seconds_per_step": statistics.median(
+                      [s["seconds"] for s in ref["steps"]][1:]),
+                  "peak_memory_gib": ref["peak_memory_gib"],
+                  "losses": [s["metrics"] for s in ref["steps"]],
+                  **({"fitness_warm_start": ref["fitness_warm_start"],
+                      "build_launches": ref["build_launches"]}
+                     if dtype == "float32" else {})})
+        runs = [(b, w, "float32") for b, w in worlds] + [
+            (worlds[-1][0], worlds[-1][1], "float64")]
+        for backend, world, dtype in runs:
+            res, wall, run_dir = dist_group_run(tmp, inputs, backend, world,
+                                                dtype)
+            label = f"{backend}{world}_{dtype}"
+            ref, ref_dir = refs[dtype]
+            numbers, bad = compare_train(label, res, ref, run_dir, ref_dir)
+            fails += bad
+            if dtype == "float32":
+                more, bad = compare_rest(label, res, ref)
+                numbers.update(more)
+                fails += bad
+                if world > 1:
+                    multi = (res, run_dir, backend, world)
+            emit({"phase": "dist", "part": label, "wall_s": wall, **numbers})
+        res, run_dir, backend, world = multi
+        det = build_detector([(TRAIN["tile_size"], TRAIN["overlap"],
+                               os.path.join(run_dir, "rank0",
+                                            "last.ckpt"))])
+        rows = det.detect_image(data["maps"][0])["merged_for_pr"]
+        check_rows(rows, *data["maps"][0].shape[:2],
+                   det.cfg.conf_thr_predict)
+        del det
+        cli = dist_cli(tmp, data["maps"], backend, world,
+                       [len(r["merged_for_pr"]) for r in res[0][
+                           "detect_4ch"]])
+        emit({"phase": "dist", "part": "cli", **cli,
+              "last_ckpt_detect_rows": len(rows),
+              "phase_seconds": time.perf_counter() - t0})
+    torch.backends.cudnn.deterministic = False
+    if fails:
+        raise AssertionError("dist phase: " + "; ".join(fails))
+    return {"dist_detect_4ch": [r["detect_4ch_launches"] for r in res],
+            "dist_train_4ch_build": [r["build_launches"] for r in res]}
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -1600,10 +2101,15 @@ def main(argv=None) -> int:
     p.add_argument("--profile", type=int, default=0, metavar="MAPS",
                    help="also profile the slice and the dual path over "
                         "MAPS warm maps each")
+    p.add_argument("--dist-worker", metavar="SPEC",
+                   help="(used by the dist phase) run one process of a "
+                        "data-parallel run from its JSON spec")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if args.dist_worker:
+        return dist_worker(json.loads(args.dist_worker))
     sys.path.insert(0, REPO)
     from oriented_object_detection_tpu_torch.config import PRESETS
     from oriented_object_detection_tpu_torch.ops import edt as E
@@ -1658,13 +2164,15 @@ def main(argv=None) -> int:
     phase_convert(torch, img)
     rand = phase_random(torch, E)
     train = phase_train(torch, E, smi)
+    dist = phase_dist(torch, E)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     # the times are the slice-mask shape's, device only; the launches are
     # the slice's, and by path: the dual path runs neither kernel, the 4ch
     # batch and stream, the crop, the random x-scale path and the training
-    # path's 4-channel build run both
+    # path's 4-channel build run both; under --dist, by process, the 4ch
+    # detection on every process and the 4ch build on process 0 alone
     emit({"kernels": [
         {"name": name, "route": "cuda",
          "source": "oriented_object_detection_tpu_torch/csrc/edt.cu",
@@ -1673,7 +2181,9 @@ def main(argv=None) -> int:
                               "batch": multi["batch"][name],
                               "stream": multi["stream"][name],
                               "crop": crop[name], "random": rand[name],
-                              "train_4ch_build": train["launches"][name]},
+                              "train_4ch_build": train["launches"][name],
+                              **{path: [r[name] for r in by_rank]
+                                 for path, by_rank in dist.items()}},
          **{k: kern["slice"][name][k] for k in keys},
          "shape": ["slice", *smask.shape], "timing": "device_only"}
         for name in KERNELS]})

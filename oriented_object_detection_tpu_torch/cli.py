@@ -32,6 +32,17 @@ at a time; the outputs are those of the per-map path. ``convert`` turns an
 ultralytics checkpoint into one that ``detect`` reads, with no torch code
 of the file run. Every command but ``convert`` runs on the CUDA card unless
 ``--device cpu`` is given; reading and drawing the images needs cv2.
+
+``--dist`` runs ``train``, ``val`` or ``detect`` data-parallel, one process
+per card (``parallel/distributed.py``), joined through ``--coordinator
+host:port --num-processes N --process-id I`` or torchrun's environment:
+
+  torchrun --nproc-per-node 4 -m oriented_object_detection_tpu_torch.cli \
+      train --dist --data-root datasets/GeoMap --batch-size 16
+
+NCCL joins the cards (``--dist-backend`` names another, gloo with
+``--device cpu``). Process 0 alone builds the dataset and writes the files
+and reports; every process computes the same global results.
 """
 
 from __future__ import annotations
@@ -59,19 +70,53 @@ def _triples(args) -> list:
     return triples
 
 
+def _device(args):
+    """The device of this command: with ``--dist``, this process's after
+    joining the group (``parallel/distributed.py``); else ``--device``,
+    the card by default."""
+    from .parallel import distributed as PD
+    from .utils.runtime import resolve_device
+
+    if not args.dist:
+        return resolve_device(args.device)
+    return PD.initialize(args.coordinator, args.num_processes,
+                         args.process_id, backend=args.dist_backend,
+                         device=args.device)
+
+
+def _run(fn, args):
+    """``fn(args)``, leaving the data-parallel group, if one was joined, on
+    the way out."""
+    from .parallel import distributed as PD
+
+    try:
+        return fn(args)
+    finally:
+        PD.shutdown()
+
+
 def _detect(args) -> None:
     import cv2  # the images are read and drawn with it
 
     from .eval.metrics import run_fusion_eval
     from .infer.pipeline import build_detector, process_image, write_outputs
+    from .parallel import distributed as PD
 
     triples = _triples(args)
     if not triples:
         raise SystemExit("provide --ckpt128 and/or --ckpt416")
+    device = _device(args) if args.dist else args.device
+    main = PD.is_main()
+    if args.dist and not (args.batch or args.stream or args.chunk):
+        # the per-map path writes inside process_image; the multi-map path
+        # gates the files to process 0
+        args.batch = True
+        if main:
+            print("[detect] --dist implies --batch")
     try:
         det = build_detector(
             triples, channels=args.channels, model_scale=args.scale,
-            device=args.device, allow_random=args.allow_random,
+            device=device, allow_random=args.allow_random,
             calculate_metrics=args.metrics, merge_iou=args.merge_iou,
             metrics_iou=args.metrics_iou, map_min_score=args.map_min_score,
             apply_border_filter=not args.no_border_filter,
@@ -79,7 +124,8 @@ def _detect(args) -> None:
     except ValueError as e:
         raise SystemExit(str(e))
 
-    os.makedirs(args.output, exist_ok=True)
+    if main:
+        os.makedirs(args.output, exist_ok=True)
     names = [f for f in sorted(os.listdir(args.input))
              if f.lower().endswith((".jpg", ".png", ".jpeg", ".tif",
                                     ".tiff"))]
@@ -98,14 +144,17 @@ def _detect(args) -> None:
         else:
             results = det.detect_images(maps)
         for (p, im), res in zip(ok, results):
-            write_outputs(im, p, res, args.output, store)
-            print(f"Results saved for {os.path.basename(p)}")
+            if main:
+                write_outputs(im, p, res, args.output, store)
+                print(f"Results saved for {os.path.basename(p)}")
     else:
         for fname in names:
             print(f"Processing {fname}...")
             process_image(det, os.path.join(args.input, fname), args.output,
                           store=store)
             print(f"Results saved for {fname}")
+    if not main:
+        return
     print(f"--- {time.time() - t0:.2f} seconds ---")
 
     if args.metrics:
@@ -129,10 +178,14 @@ def _train(args):
     from .data import dataset as DS
     from .data.loader import TileDataset, mosaic_p_for_epoch
     from .eval.val import validate_tiles
+    from .parallel import distributed as PD
+    from .parallel import mesh as PM
     from .train import trainer as TR
-    from .utils.runtime import resolve_device
 
-    device = resolve_device(args.device)
+    device = _device(args)
+    # each process's rows of every global batch, from the same stream
+    rows = PM.batch_rows(args.batch_size, PD.rank(), PD.world())
+    main = PD.is_main()
     cfg = TrainConfig(
         tile_size=args.tile_size, overlap=args.overlap, epochs=args.epochs,
         batch_size=args.batch_size, channels=args.channels,
@@ -155,7 +208,9 @@ def _train(args):
     }
     train_list = f"{root}/train_cropped{ts}.txt"
     val_list = f"{root}/val_cropped{ts}.txt"
-    if cfg.need_cropping:
+    # the dataset build writes shared files: process 0 builds, the others
+    # wait at the barrier below
+    if cfg.need_cropping and main:
         stats = DS.build_train_tiles(
             dirs["img"], dirs["lbl"], dirs["oimg"], dirs["olbl"],
             train_list, ts, cfg.overlap, cfg.object_boundary_threshold)
@@ -180,6 +235,9 @@ def _train(args):
             r_target=cfg.r_target)
 
     if cfg.channels == 4 and cfg.apply_filtered_rgb:
+        train_list = f"{root}/train_cropped_4ch.txt"
+        val_list = f"{root}/val_cropped_4ch.txt"
+    if cfg.channels == 4 and cfg.apply_filtered_rgb and main:
         tr = DS.convert_folder_to_4ch_tiff(
             dirs["oimg"], f"{root}/cropped4/images/train", device=device)
         va = DS.convert_folder_to_4ch_tiff(
@@ -190,16 +248,16 @@ def _train(args):
                                  f"{root}/cropped4/labels/train", stems(tr))
         DS.mirror_labels_by_stem(dirs["volbl"],
                                  f"{root}/cropped4/labels/val", stems(va))
-        train_list = f"{root}/train_cropped_4ch.txt"
-        val_list = f"{root}/val_cropped_4ch.txt"
         DS.update_list_file(train_list, tr)
         DS.update_list_file(val_list, va)
+    PD.barrier()
 
     train_ds = TileDataset(train_list, ts, cfg.channels, device=device)
     val_ds = TileDataset(val_list, ts, cfg.channels, device=device)
     steps_per_epoch = max(1, len(train_ds) // cfg.batch_size)
-    print(f"[TRAIN] {len(train_ds)} train tiles, {len(val_ds)} val tiles, "
-          f"{steps_per_epoch} steps/epoch")
+    if main:
+        print(f"[TRAIN] {len(train_ds)} train tiles, {len(val_ds)} val "
+              f"tiles, {steps_per_epoch} steps/epoch")
 
     state = TR.create_train_state(cfg, steps_per_epoch, device=device)
     rng = np.random.RandomState(cfg.seed)
@@ -209,14 +267,16 @@ def _train(args):
         mp = mosaic_p_for_epoch(epoch, cfg.epochs, cfg.close_mosaic)
         if mp == 0.0 and not closed:
             closed.append(epoch)
-            print(f"[close_mosaic] mosaic disabled for the final "
-                  f"{cfg.close_mosaic} epochs (engine default)")
+            if main:
+                print(f"[close_mosaic] mosaic disabled for the final "
+                      f"{cfg.close_mosaic} epochs (engine default)")
         return train_ds.batches(cfg.batch_size, rng, augment=True,
-                                mosaic_p=mp)
+                                mosaic_p=mp, rows=rows)
 
     return TR.fit(state, cfg, train_batches,
-                  val_fn=lambda s: validate_tiles(s.eval_model(), val_ds,
-                                                  cfg),
+                  val_fn=lambda s: validate_tiles(
+                      s.eval_model(), val_ds, cfg,
+                      shard_across_processes=True),
                   ckpt_dir=args.ckpt_dir or f"runs/obb/train{ts}",
                   resume=args.resume, init_ckpt=args.init_ckpt)
 
@@ -232,9 +292,9 @@ def _val(args) -> dict:
                                  torch_state_from_jax,
                                  variables_from_checkpoint)
     from .models.yolo11_obb import YOLO11OBB
-    from .utils.runtime import resolve_device
+    from .parallel import distributed as PD
 
-    device = resolve_device(args.device)
+    device = _device(args)
     ck = load_checkpoint(args.ckpt)
     extra = ck.get("extra", {})
     scale = extra.get("model_scale", args.scale)
@@ -253,12 +313,14 @@ def _val(args) -> dict:
     load_state(model, torch_state_from_jax(variables_from_checkpoint(ck)))
     fitness, comps = validate_tiles(
         model.to(device).eval(), ds, cfg, max_tiles=args.max_tiles,
-        batch_size=args.batch_size, return_components=True)
-    print(f"[VAL] ckpt={args.ckpt} scale={scale} ts={ts} "
-          f"tiles={comps['n_tiles']}")
-    print(f"[VAL] mAP@0.5={comps['mAP@0.5']:.4f} "
-          f"mAP@[0.5:0.95]={comps['mAP@[0.5:0.95]']:.4f} "
-          f"fitness={fitness:.4f}")
+        batch_size=args.batch_size, return_components=True,
+        shard_across_processes=args.dist)
+    if PD.is_main():   # every process holds the same global metric
+        print(f"[VAL] ckpt={args.ckpt} scale={scale} ts={ts} "
+              f"tiles={comps['n_tiles']}")
+        print(f"[VAL] mAP@0.5={comps['mAP@0.5']:.4f} "
+              f"mAP@[0.5:0.95]={comps['mAP@[0.5:0.95]']:.4f} "
+              f"fitness={fitness:.4f}")
     return {"fitness": fitness, **comps}
 
 
@@ -316,6 +378,21 @@ def _convert(args) -> None:
     print(f"[Convert] wrote {args.out}")
 
 
+def _dist_flags(p, what: str) -> None:
+    p.add_argument("--dist", action="store_true",
+                   help="data parallelism across processes "
+                        "(torch.distributed, one process per card): "
+                        + what)
+    p.add_argument("--coordinator", default=None,
+                   help="host:port of process 0 (else torchrun's "
+                        "MASTER_ADDR/MASTER_PORT)")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
+    p.add_argument("--dist-backend", default=None,
+                   help="torch.distributed backend; default: nccl on the "
+                        "card, gloo with --device cpu")
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="oriented_object_detection_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -357,6 +434,9 @@ def main(argv=None):
     d.add_argument("--margin-416", type=int, default=20)
     d.add_argument("--device", default=None,
                    help="torch device; default: the CUDA card")
+    _dist_flags(d, "split the tile batch over the processes, gather the "
+                   "rows to each and write the files from process 0 only "
+                   "(implies --batch)")
     d.set_defaults(fn=_detect)
 
     t = sub.add_parser("train", help="dataset build + training")
@@ -387,6 +467,10 @@ def main(argv=None):
     t.add_argument("--ckpt-dir")
     t.add_argument("--device", default=None,
                    help="torch device; default: the CUDA card")
+    _dist_flags(t, "the reference's data-parallel training "
+                   "(Train_OBB.py:39-42): process 0 builds the dataset and "
+                   "writes the files, every process trains on its rows of "
+                   "each global batch")
     t.set_defaults(fn=_train)
 
     v = sub.add_parser("val", help="per-tile val mAP/fitness of a "
@@ -405,6 +489,9 @@ def main(argv=None):
     v.add_argument("--max-tiles", type=int)
     v.add_argument("--device", default=None,
                    help="torch device; default: the CUDA card")
+    _dist_flags(v, "each process validates a stride slice of the tiles, "
+                   "the rows are gathered, process 0 reports the global "
+                   "metric")
     v.set_defaults(fn=_val)
 
     c = sub.add_parser("convert",
@@ -421,7 +508,7 @@ def main(argv=None):
     c.set_defaults(fn=_convert)
 
     args = p.parse_args(argv)
-    return args.fn(args)
+    return _run(args.fn, args)
 
 
 if __name__ == "__main__":

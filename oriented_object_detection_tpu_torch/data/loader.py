@@ -249,11 +249,16 @@ class TileDataset:
                 shuffle: bool = True, augment: bool = True,
                 mosaic_p: float = 1.0, fliplr_p: float = 0.5,
                 hsv_s: float = 0.7, hsv_v: float = 0.4,
-                drop_last: bool = True) -> Iterator[dict]:
+                drop_last: bool = True, rows: tuple | None = None
+                ) -> Iterator[dict]:
         """Yield padded batch dicts ready for the train step, drawing from
         ``rng`` in the JAX package's order: the shuffle, then per sample the
         mosaic coin (and the mosaic's draws), then per batch the flips and
-        the S and V gains."""
+        the S and V gains. ``rows=(start, stop)`` yields only those rows of
+        each batch (one process's share of a global batch): every draw is
+        still made for the whole batch, so the processes' streams are one
+        stream, and only the rows' tiles are gathered, mosaicked and
+        warped."""
         cache = self.tile_cache()
         dev = self.device
         order = np.arange(len(self.paths))
@@ -264,7 +269,8 @@ class TileDataset:
         end = n - (n % batch_size) if drop_last else n
         for s in range(0, max(end, 0), batch_size):
             idx = order[s:s + batch_size]
-            B = len(idx)
+            lo, hi = rows if rows is not None else (0, len(idx))
+            B = hi - lo
             gl = np.zeros((B, M), np.int64)
             gb = np.zeros((B, M, 5), np.float32)
             gm = np.zeros((B, M), bool)
@@ -273,15 +279,20 @@ class TileDataset:
             xc = np.zeros((B,), np.int64)
             wtab = np.zeros((B, 4, ts), np.int32)  # adelta/bdelta/X0/Y0
             is_mos = np.zeros((B,), bool)
-            for bi, i in enumerate(idx):
+            for j, i in enumerate(idx):
+                bi = j - lo
                 if augment and rng.rand() < mosaic_p:
                     params = self.mosaic_params(i, rng)
+                    if not 0 <= bi < B:
+                        continue
                     cls, c8 = self.mosaic_labels(params)
                     idxs, yc[bi], xc[bi], sc, tx, ty = params
                     tidx[bi] = idxs
                     wtab[bi] = W.affine_deltas(W.invert_affine(
                         np.array([[sc, 0, tx], [0, sc, ty]])), ts, ts)
                     is_mos[bi] = True
+                elif not 0 <= bi < B:
+                    continue
                 else:
                     tidx[bi] = i
                     cls, c8 = self._labels_sized(i)
@@ -305,9 +316,12 @@ class TileDataset:
             x = imgs.to(torch.float32)
             gbt = torch.from_numpy(gb).to(dev)
             if augment:
-                flips = rng.rand(B) < fliplr_p
-                sg = np.maximum(1.0 + rng.uniform(-1, 1, B) * hsv_s, 0.0)
-                vg = np.maximum(1.0 + rng.uniform(-1, 1, B) * hsv_v, 0.0)
+                n_all = len(idx)
+                flips = (rng.rand(n_all) < fliplr_p)[lo:hi]
+                sg = np.maximum(1.0 + rng.uniform(-1, 1, n_all) * hsv_s,
+                                0.0)[lo:hi]
+                vg = np.maximum(1.0 + rng.uniform(-1, 1, n_all) * hsv_v,
+                                0.0)[lo:hi]
                 fl = torch.from_numpy(flips).to(dev)
                 x = torch.where(fl[:, None, None, None], AUG.fliplr_image(x),
                                 x)

@@ -12,6 +12,7 @@ import torch
 
 from ..config import TrainConfig
 from ..models import decode as D
+from ..parallel import distributed as PD
 from . import metrics as M
 
 
@@ -34,14 +35,32 @@ def _letterbox_np(img: np.ndarray, new_size: int, pad_value: int = 114):
     return out, r, (left, top)
 
 
+def _gather_by_tile(rows_by_tile: dict, order, width: int) -> dict:
+    """Every process's {tile index: rows [k, width]} gathered to every
+    process, keyed in the global tile ``order``: one row gather of the
+    rows with their tile index in front."""
+    flat = [np.concatenate([np.full((len(r), 1), i, np.float64), r], axis=1)
+            for i, r in rows_by_tile.items()]
+    flat = np.concatenate(flat) if flat else np.zeros((0, width + 1))
+    every = PD.all_gather_rows(torch.from_numpy(flat)).numpy()
+    tile = every[:, 0].astype(np.int64)
+    return {int(i): every[tile == i, 1:] for i in order}
+
+
 @torch.inference_mode()
 def validate_tiles(model: torch.nn.Module, val_ds, cfg: TrainConfig,
                    max_tiles: int | None = None, batch_size: int = 16,
-                   conf_thr: float = 0.001, return_components: bool = False):
+                   conf_thr: float = 0.001, return_components: bool = False,
+                   shard_across_processes: bool = False):
     """Fitness of ``model`` (in eval mode, on the device it is on) over the
     val tile dataset; with ``return_components`` also the mAP breakdown
     (``val``, the engine's ``model.val()``). ``max_tiles`` evaluates a
-    seeded random subset."""
+    seeded random subset.
+
+    ``shard_across_processes`` in a data-parallel group: each process runs
+    the stride slice ``order[rank::world]`` of the tile order, then the
+    detection and ground-truth rows are gathered to every process, which
+    evaluates the same global metric in the global tile order."""
     dev = next(model.parameters()).device
     ts = cfg.tile_size
     n = len(val_ds) if max_tiles is None else min(len(val_ds), max_tiles)
@@ -49,11 +68,13 @@ def validate_tiles(model: torch.nn.Module, val_ds, cfg: TrainConfig,
     if max_tiles is not None and len(val_ds) > max_tiles:
         np.random.RandomState(0).shuffle(order)
     order = order[:n]
+    shard = shard_across_processes and PD.world() > 1
+    local = order[PD.rank()::PD.world()] if shard else order
 
     dets_per_image: dict = {}
     gt_map: dict = {}
-    for s in range(0, n, batch_size):
-        idx = order[s:s + batch_size]
+    for s in range(0, len(local), batch_size):
+        idx = local[s:s + batch_size]
         imgs = np.zeros((len(idx), ts, ts, cfg.channels), np.float32)
         keys = []
         for bi, i in enumerate(idx):
@@ -86,6 +107,15 @@ def validate_tiles(model: torch.nn.Module, val_ds, cfg: TrainConfig,
             dets_per_image[key] = np.concatenate(
                 [c8[bi][sel], cls[bi][sel][:, None], conf[bi][sel][:, None],
                  np.zeros((sel.sum(), 1))], axis=1)
+
+    if shard:
+        index = {val_ds.paths[i]: int(i) for i in local}
+        dets = _gather_by_tile({index[k]: v for k, v in
+                                dets_per_image.items()}, order, 11)
+        gts = _gather_by_tile({index[k]: v for k, v in gt_map.items()},
+                              order, 9)
+        dets_per_image = {val_ds.paths[i]: dets[i] for i in dets}
+        gt_map = {val_ds.paths[i]: gts[i] for i in gts}
 
     cache = M.GTCache(loader=lambda p: gt_map.get(p, np.zeros((0, 9))))
     out = M.evaluate_map(dets_per_image, list(dets_per_image),

@@ -41,6 +41,8 @@ from ..ops import dtedge as DT
 from ..ops import geometry as G
 from ..ops import image as IM
 from ..ops import tiling as T
+from ..parallel import distributed as PD
+from ..parallel import mesh as PM
 from ..utils import native
 from ..utils import profiling as prof
 from ..utils.runtime import resolve_device
@@ -199,7 +201,10 @@ class TiledDetector:
         host synchronization: fixed-shape rows [T, max_det, 13] and each
         map's (first tile, tile count). The tiles go through the network
         in chunks of at most ``TILE_PIXELS_PER_FORWARD`` pixels, so the
-        activations and the NMS stay bounded however many maps come."""
+        activations and the NMS stay bounded however many maps come. In a
+        data-parallel group each process runs its contiguous share of the
+        flat tile list (``tile_id`` stays the global index) and the rows of
+        every share are gathered to every process."""
         ts = scale.tile_size
         counts = [len(g) for g in grids]
         starts = np.cumsum([0] + counts)
@@ -208,14 +213,23 @@ class TiledDetector:
         flat = np.concatenate(grids)
         padded = [T.pad_for_tiles(m, ts) for m in maps]
         per = max(1, TILE_PIXELS_PER_FORWARD // (ts * ts))
+        shares = [PM.rank_range(len(flat), r, PD.world())
+                  for r in range(PD.world())]
+        lo, hi = shares[PD.rank()]
         rows = []
-        for a in range(0, len(flat), per):
-            own = owner[a:a + per]
+        for a in range(lo, hi, per):
+            b = min(a + per, hi)
+            own = owner[a:b]
             tiles = torch.cat([
-                T.gather_tiles(padded[i], flat[a:a + per][own == i], ts)
+                T.gather_tiles(padded[i], flat[a:b][own == i], ts)
                 for i in np.unique(own)])
-            rows.append(self._tile_rows(tiles, grid_t[a:a + per], a, ts))
-        return torch.cat(rows), segments
+            rows.append(self._tile_rows(tiles, grid_t[a:b], a, ts))
+        if not PD.active():
+            return torch.cat(rows), segments
+        # this process's share of the tiles, then every process's rows
+        mine = torch.cat(rows) if rows else torch.zeros(
+            (0, self.cfg.max_det_per_tile, 13), device=self.device)
+        return PD.all_gather_rows(mine, [b - a for a, b in shares]), segments
 
     @torch.inference_mode()
     def _dispatch(self, uploaded: tuple) -> list:

@@ -16,6 +16,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel import distributed as PD
+
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.97  # flax's: running = 0.97 * running + 0.03 * batch
 
@@ -28,7 +30,9 @@ class BatchNorm(nn.BatchNorm2d):
     *biased* batch variance; ``nn.BatchNorm2d`` would use the unbiased one,
     n/(n-1) times larger (twice as large on a 1x1 map at batch 2).
     ``num_batches_tracked`` is not used. Eval mode is ``nn.BatchNorm2d``'s:
-    the running statistics."""
+    the running statistics. Inside a data-parallel group of more than one
+    process the statistics are the global batch's (``global_moments``), so
+    every process moves its running statistics alike."""
 
     def __init__(self, c: int):
         super().__init__(c, eps=BN_EPS, momentum=1.0 - BN_MOMENTUM)
@@ -36,8 +40,12 @@ class BatchNorm(nn.BatchNorm2d):
     def forward(self, x):
         if not self.training:
             return super().forward(x)
-        mean = x.mean(dim=(0, 2, 3))
-        var = torch.clamp_min((x * x).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+        if PD.world() > 1:
+            mean, var = global_moments(x)
+        else:
+            mean = x.mean(dim=(0, 2, 3))
+            var = torch.clamp_min((x * x).mean(dim=(0, 2, 3)) - mean * mean,
+                                  0.0)
         with torch.no_grad():
             self.running_mean.mul_(BN_MOMENTUM).add_(
                 mean.detach() * (1.0 - BN_MOMENTUM))
@@ -46,6 +54,21 @@ class BatchNorm(nn.BatchNorm2d):
         mul = torch.rsqrt(var + self.eps) * self.weight
         return (x - mean[:, None, None]) * mul[:, None, None] \
             + self.bias[:, None, None]
+
+
+def global_moments(x: torch.Tensor) -> tuple:
+    """Flax's fast batch moments over every process's rows (the JAX
+    package's BatchNorm under its data mesh): one all-reduce of the packed
+    ``[sum x, sum x^2, count]`` a layer, through which the gradient flows
+    (its backward is one more). Returns (mean, E[x^2] - mean^2 clipped at
+    0)."""
+    c = x.shape[1]
+    packed = PD.all_reduce_sum(torch.cat([
+        x.sum(dim=(0, 2, 3)), (x * x).sum(dim=(0, 2, 3)),
+        x.new_full((1,), x.numel() // c)]))
+    mean = packed[:c] / packed[2 * c]
+    return mean, torch.clamp_min(packed[c:2 * c] / packed[2 * c]
+                                 - mean * mean, 0.0)
 
 
 class ConvBN(nn.Module):

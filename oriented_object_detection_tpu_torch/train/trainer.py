@@ -27,6 +27,7 @@ from ..config import TrainConfig
 from ..models.weights import (jax_trees_from_torch_state, load_checkpoint,
                               load_state, torch_state_from_jax)
 from ..models.yolo11_obb import STRIDES, YOLO11OBB
+from ..parallel import distributed as PD
 from ..utils.runtime import resolve_device
 from .loss import LossConfig, obb_loss
 
@@ -198,7 +199,14 @@ def train_step(state: TrainState, batch: dict, cfg: TrainConfig
     """One optimizer step; returns the float32 [5] metrics (METRIC_KEYS) on
     the device. The BatchNorm statistics move in the forward, the
     schedule is read at the step before it is incremented, and the EMA
-    follows the new parameters at step + 1."""
+    follows the new parameters at step + 1.
+
+    In a data-parallel group ``batch`` is this process's rows of the global
+    batch: the BatchNorm statistics and the loss normaliser are the global
+    batch's, the gradients are summed over the processes (the gradient of
+    the one global loss, as the JAX package's step on the global batch
+    takes it), so every process makes the same update; the metrics are
+    summed too, the global batch's."""
     set_hypers(state.opt, schedule_hypers(state.sched, state.step))
     state.model.train()
     out = state.model(batch["images"])
@@ -206,12 +214,15 @@ def train_step(state: TrainState, batch: dict, cfg: TrainConfig
                             batch["gt_mask"], loss_config(cfg))
     state.opt.zero_grad(set_to_none=True)
     total.backward()
+    if PD.active():
+        PD.all_reduce_grads(state.model.parameters())
     state.opt.step()
     ema_update(list(state.ema.parameters()), list(state.model.parameters()),
                state.step + 1, cfg.ema_decay, cfg.ema_tau)
     state.step += 1
-    return torch.stack([total.detach()] + [parts[k].detach().float()
-                                           for k in METRIC_KEYS[1:]])
+    metrics = torch.stack([total.detach()] + [parts[k].detach().float()
+                                              for k in METRIC_KEYS[1:]])
+    return PD.all_reduce_sum_(metrics)
 
 
 # ---------------------------------------------------------------------------
@@ -306,6 +317,14 @@ def _log(epoch: int, i: int, m) -> None:
           f"cls={m['cls']:.4f} dfl={m['dfl']:.4f}")
 
 
+def state_tensors(state: TrainState) -> dict:
+    """Every tensor the processes of a data-parallel group must hold alike:
+    the parameters, the BatchNorm statistics and the EMA."""
+    out = {f"model.{k}": v for k, v in state.model.state_dict().items()}
+    out.update({f"ema.{k}": p for k, p in state.ema.named_parameters()})
+    return out
+
+
 def fit(state: TrainState, cfg: TrainConfig, train_batches, val_fn=None,
         ckpt_dir: str = "runs/obb/train", log_every: int = 10,
         resume: bool = False, init_ckpt: str | None = None) -> TrainState:
@@ -314,10 +333,20 @@ def fit(state: TrainState, cfg: TrainConfig, train_batches, val_fn=None,
     after ``cfg.patience`` epochs without a better fitness; writes
     ``best.ckpt`` and ``last.ckpt`` (the JAX package's format), and
     ``results.csv`` with the plots. ``resume`` restores ``last.ckpt`` of
-    ckpt_dir if present; else ``init_ckpt`` warm-starts."""
+    ckpt_dir if present; else ``init_ckpt`` warm-starts.
+
+    In a data-parallel group every process runs this loop on its rows of
+    each global batch, and process 0 alone writes the files and the log.
+    Every process must start from the same state (the same seed, or the
+    same file to resume or warm-start from): the start compares the
+    processes' parameters, statistics and EMA bit for bit and raises if
+    they differ. The steps keep them equal, and ``val_fn`` must give
+    every process the same fitness, so the best epoch and the early stop
+    agree."""
     from ..utils.plots import (ResultsWriter, plot_train_batch,
                                write_args_yaml)
 
+    main = PD.is_main()
     start_epoch = 0
     best, best_epoch = -float("inf"), -1
     last_path = os.path.join(ckpt_dir, "last.ckpt")
@@ -327,47 +356,58 @@ def fit(state: TrainState, cfg: TrainConfig, train_batches, val_fn=None,
         start_epoch = int(ck["extra"].get("epoch", -1)) + 1
         best = float(ck["extra"].get("best_fitness", best))
         best_epoch = int(ck["extra"].get("best_epoch", best_epoch))
-        print(f"[Resume] from {last_path} @ epoch {start_epoch}")
+        if main:
+            print(f"[Resume] from {last_path} @ epoch {start_epoch}")
     elif init_ckpt:
         if not os.path.exists(init_ckpt):
             raise FileNotFoundError(f"--init-ckpt {init_ckpt} not found")
         state = warm_start_state(init_ckpt, state, expect={
             "model_scale": cfg.model_scale, "channels": cfg.channels})
-        print(f"[WarmStart] params/EMA initialized from {init_ckpt}")
+        if main:
+            print(f"[WarmStart] params/EMA initialized from {init_ckpt}")
+    PD.check_same_across_ranks(state_tensors(state))
 
-    results = ResultsWriter(ckpt_dir, plots=cfg.plots)
-    write_args_yaml(ckpt_dir, cfg)
+    results = None
+    if main:
+        results = ResultsWriter(ckpt_dir, plots=cfg.plots)
+        write_args_yaml(ckpt_dir, cfg)
     meta = {"model_scale": cfg.model_scale, "channels": cfg.channels,
             "tile_size": cfg.tile_size}
     for epoch in range(start_epoch, cfg.epochs):
         acc = torch.zeros(len(METRIC_KEYS), device=state.device)
         count = 0
         for i, batch in enumerate(train_batches(epoch)):
-            if epoch == start_epoch and i == 0 and cfg.plots:
+            if epoch == start_epoch and i == 0 and cfg.plots and main:
                 plot_train_batch(batch, os.path.join(ckpt_dir,
                                                      "train_batch0.jpg"))
             m = train_step(state, batch, cfg)
             acc += m
             count += 1
-            if i % log_every == 0:
+            if i % log_every == 0 and main:
                 _log(epoch, i, m)
         fitness = float(val_fn(state)) if val_fn is not None else 0.0
-        sums = dict(zip(METRIC_KEYS, acc.tolist()))
-        results.append(
-            epoch=epoch, fitness=fitness,
-            lr=float(schedule_hypers(state.sched, state.step)["lr"]),
-            **{k: v / max(count, 1) for k, v in sums.items()})
-        payload = checkpoint_payload(state)
-        if fitness > best:
+        improved = fitness > best
+        if improved:
             best, best_epoch = fitness, epoch
-            write_checkpoint(os.path.join(ckpt_dir, "best.ckpt"), payload,
-                             {"epoch": epoch, "fitness": fitness, **meta})
-        write_checkpoint(last_path, payload,
-                         {"epoch": epoch, "fitness": fitness,
-                          "best_fitness": best, "best_epoch": best_epoch,
-                          **meta})
+        if main:
+            sums = dict(zip(METRIC_KEYS, acc.tolist()))
+            results.append(
+                epoch=epoch, fitness=fitness,
+                lr=float(schedule_hypers(state.sched, state.step)["lr"]),
+                **{k: v / max(count, 1) for k, v in sums.items()})
+            payload = checkpoint_payload(state)
+            if improved:
+                write_checkpoint(os.path.join(ckpt_dir, "best.ckpt"),
+                                 payload,
+                                 {"epoch": epoch, "fitness": fitness, **meta})
+            write_checkpoint(last_path, payload,
+                             {"epoch": epoch, "fitness": fitness,
+                              "best_fitness": best, "best_epoch": best_epoch,
+                              **meta})
         if epoch - best_epoch >= cfg.patience:
-            print(f"[EarlyStop] no improvement for {cfg.patience} epochs "
-                  f"(best fitness {best:.4f} @ epoch {best_epoch})")
+            if main:
+                print(f"[EarlyStop] no improvement for {cfg.patience} "
+                      f"epochs (best fitness {best:.4f} @ epoch "
+                      f"{best_epoch})")
             break
     return state

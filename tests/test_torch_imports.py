@@ -41,6 +41,8 @@ PORT_MODULES = [
     "oriented_object_detection_tpu_torch.ops.nms",
     "oriented_object_detection_tpu_torch.ops.tiling",
     "oriented_object_detection_tpu_torch.ops.warp",
+    "oriented_object_detection_tpu_torch.parallel.distributed",
+    "oriented_object_detection_tpu_torch.parallel.mesh",
     "oriented_object_detection_tpu_torch.train.assigner",
     "oriented_object_detection_tpu_torch.train.loss",
     "oriented_object_detection_tpu_torch.train.trainer",
@@ -296,3 +298,68 @@ def test_chip_smoke_synthetic_map_is_seeded():
     cx, cy = gt_a[-1, 1::2].mean(), gt_a[-1, 2::2].mean()
     assert tuple(a[int(round(cy)), int(round(cx))]) == \
         chip_smoke.PALETTE[int(gt_a[-1, 0])]
+
+
+@pytest.mark.parametrize("cmd", ["train", "val", "detect"])
+def test_dist_without_cuda_raises(cmd, monkeypatch, tmp_path):
+    """``--dist`` wants this process's card unless ``--device cpu`` is
+    given, and raises before it joins a group or does any work."""
+    import torch.distributed as dist
+
+    from oriented_object_detection_tpu_torch import cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ck = os.path.join(REPO, "assets/bench_ckpts/train128.ckpt")
+    argv = {"train": ["train", "--data-root", str(tmp_path)],
+            "val": ["val", "--ckpt", ck, "--data-root", str(tmp_path)],
+            "detect": ["detect", "--input", str(tmp_path), "--output",
+                       str(tmp_path / "out"), "--ckpt128", ck]}[cmd]
+    flags = ["--dist", "--coordinator", "localhost:1", "--num-processes",
+             "2", "--process-id", "0"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(argv + flags)
+    assert not dist.is_initialized()
+    assert not os.listdir(tmp_path)
+
+
+def test_one_process_makes_no_distributed_call(monkeypatch):
+    """Without a group, a train step and a detection take the one-process
+    code: no call into torch.distributed but the check for a group."""
+    import torch.distributed as dist
+
+    def refuse(*a, **k):
+        raise AssertionError("a torch.distributed call without a group")
+
+    for name in ("all_reduce", "all_gather", "broadcast", "barrier",
+                 "get_rank", "get_world_size", "get_backend",
+                 "init_process_group"):
+        monkeypatch.setattr(dist, name, refuse)
+    assert not dist.is_initialized()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)   # parallel test workers share the cores
+    try:
+        _one_process_step_and_detection()
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _one_process_step_and_detection():
+    from oriented_object_detection_tpu_torch.config import TrainConfig
+    from oriented_object_detection_tpu_torch.infer.pipeline import (
+        build_detector)
+    from oriented_object_detection_tpu_torch.train import trainer
+
+    cfg = TrainConfig(tile_size=32, batch_size=2, model_scale="n")
+    st = trainer.create_train_state(cfg, 1, device="cpu")
+    batch = {"images": torch.rand(2, 3, 32, 32),
+             "gt_labels": torch.zeros((2, 4), dtype=torch.int64),
+             "gt_xywhr": torch.tensor([[16.0, 16, 8, 6, 0.2]]).expand(
+                 2, 4, 5).contiguous(),
+             "gt_mask": torch.tensor([[True, False, False, False]] * 2)}
+    assert torch.isfinite(trainer.train_step(st, batch, cfg)).all()
+    det = build_detector([(416, 100, os.path.join(
+        REPO, "assets/bench_ckpts/train416_4ch.ckpt"))], channels=4,
+        device="cpu")
+    img = np.full((300, 300, 3), 200, np.uint8)
+    assert len(det.detect_images([img])) == 1
+    assert len(list(det.detect_stream([img, img]))) == 2
