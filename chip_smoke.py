@@ -3,7 +3,10 @@
 
     python3 chip_smoke.py [--profile MAPS]
 
-Phases, each printing one JSON line (warnings go to stderr):
+Phases, each printing one JSON line (warnings go to stderr). The port
+computes in bf16 by default, as the JAX package does; every phase but
+``bf16`` pins ``compute_dtype="float32"`` (``F32``), so its float32
+equalities and bounds hold as before:
 
 1. device  - the card's name and power limit (nvidia-smi) and the float32
              matmul/convolution precision it runs with (TF32 off).
@@ -66,7 +69,25 @@ Phases, each printing one JSON line (warnings go to stderr):
              YOLO11x-OBB 4ch init, ``calibrate_density`` at 416 and
              ``detect_images`` of two maps, which give rows at the predict
              threshold and launch K1 and K2.
-12. train   - the training path (``Train_OBB.py``'s configuration) on four
+12. bf16    - the default compute dtype on every path that runs it, with
+             nothing falling back to float32: ``detect_dual`` at the
+             defaults over the batch phase's eight maps (every conv output
+             bf16; seconds a map one at a time and batched, peak memory,
+             device busy time; with ``--profile`` the kinds and names of
+             the kernels; rows paired with the batch phase's float32 rows
+             of the same maps, ``BF16_ROWS``; one map's metric block), the
+             4ch slice over the batch phase's four maps one at a time and
+             batched (K1/K2 launched and bit-equal to their plain versions,
+             rows paired with float32; profiled with ``--profile``),
+             ``cli.py detect`` with no dtype setting (bf16 weights and conv
+             outputs, jpg and xlsx written),
+             ``train_416`` (the first step against the float32 step from
+             the same warm start and batch, ``BF16_STEP``; 4 steps of
+             ``fit``: finite losses, float32 parameters, gradients,
+             momentum, EMA and statistics, seconds a step, peak memory, two
+             profiled steps) and an n-scale bf16 step on the card against
+             the CPU's.
+13. train   - the training path (``Train_OBB.py``'s configuration) on four
              seeded 1024x1024 train maps (64 tiles at 416/100, labels from
              the maps' own rectangles written with ``write_labels``) and
              one val map (16 tiles), fed through ``TileDataset(reader=...)``
@@ -82,7 +103,7 @@ Phases, each printing one JSON line (warnings go to stderr):
              2 steps of YOLO11n-OBB 4ch from ``train416_4ch.ckpt``; last one
              n-scale step at tile 64, batch 2 from the same weights and
              batch on the card and on the CPU, held together.
-13. dist    - data parallelism across processes (``--dist``), each run of
+14. dist    - data parallelism across processes (``--dist``), each run of
              it held to the one-process run of the same work on the same
              card: the 4ch build of the train tiles (process 0 alone
              launches K1/K2), the sharded validation of the
@@ -151,6 +172,9 @@ SM_SMEM_UNIT = 128            # shared memory allocated in these units
 SM_SMEM_RESERVED = 1024       # shared memory the system takes per block
 FP32_FLOPS = 67e12            # same, float32 outside the tensor cores
 # the TPU kernels each CUDA kernel replaces
+# every phase but the bf16 one pins float32: they hold the float32
+# equalities and bounds of the work before bf16 became the default
+F32 = {"compute_dtype": "float32"}
 REPLACES = {
     "edt_pass1_columns": "oriented_object_detection_tpu/ops/edt.py:110",
     "edt_pass2_rows": "oriented_object_detection_tpu/ops/edt.py:286",
@@ -538,7 +562,7 @@ def phase_slice(torch, E, img) -> tuple:
     from oriented_object_detection_tpu_torch.ops import tiling as T
 
     H, W = img.shape[:2]
-    det = build_detector([(416, 100, CKPT)], channels=4)
+    det = build_detector([(416, 100, CKPT)], channels=4, **F32)
     sc = det.cfg.scales[0]
     grid = T.inference_tile_grid(H, W, sc.tile_size, sc.overlap)
 
@@ -560,8 +584,8 @@ def phase_slice(torch, E, img) -> tuple:
         raise AssertionError("DT-Edge tiles from the kernels differ from "
                              "the plain-version ones")
 
-    cpu_rows = build_detector([(416, 100, CKPT)], channels=4,
-                              device="cpu").detect_image(img)["merged_for_pr"]
+    cpu_rows = build_detector([(416, 100, CKPT)], channels=4, device="cpu",
+                              **F32).detect_image(img)["merged_for_pr"]
     match_rows(rows, cpu_rows)
     match_rows(cpu_rows, rows)
     check_xlsx(rows)
@@ -586,7 +610,7 @@ def phase_dual(torch, E, img, gt) -> object:
     from oriented_object_detection_tpu_torch.ops import tiling as T
 
     H, W = img.shape[:2]
-    det = build_detector(DUAL)
+    det = build_detector(DUAL, **F32)
     if [sc.model_scale for sc in det.cfg.scales] != ["x", "x"]:
         raise AssertionError(f"not the x scale: {det.cfg.scales}")
     tiles = {sc.tile_size: len(T.inference_tile_grid(H, W, sc.tile_size,
@@ -612,7 +636,7 @@ def phase_dual(torch, E, img, gt) -> object:
     # one device and dropped on the other by a last-bit difference
     corner = np.ascontiguousarray(img[:640, :640])
     gpu = det.detect_image(corner)
-    cpu = build_detector(DUAL, device="cpu").detect_image(corner)
+    cpu = build_detector(DUAL, device="cpu", **F32).detect_image(corner)
     for a, b in ((gpu, cpu), (cpu, gpu)):
         for ts in (128, 416):
             match_rows(a["by_scale"][ts], b["by_scale"][ts])
@@ -622,7 +646,7 @@ def phase_dual(torch, E, img, gt) -> object:
     # one metrics-mode map against the map's own rectangles; the input
     # folder holds an empty file of the map's name (the GT loader reads no
     # pixels, and the card's machine has no cv2)
-    mdet = build_detector(DUAL, calculate_metrics=True)
+    mdet = build_detector(DUAL, calculate_metrics=True, **F32)
     mres = mdet.detect_image(img)
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "map.png")
@@ -918,7 +942,7 @@ def phase_batch(torch, E) -> dict:
 
     maps = [synthetic_map(s, H=h, W=w)[0]
             for s, (h, w) in zip(BATCH_SEEDS, BATCH_SHAPES)]
-    det = build_detector([(416, 100, CKPT)], channels=4)
+    det = build_detector([(416, 100, CKPT)], channels=4, **F32)
     res, num = run_modes(torch, E, det, maps)
     groups = -(-len(maps) // STREAM_CHUNK)
     want = {"per_image": len(maps), "batch": 1, "stream": groups}
@@ -937,10 +961,11 @@ def phase_batch(torch, E) -> dict:
             "dispatch_syncs": dispatch_syncs(torch, det, maps),
             "tile_gather": tile_gather_seconds(torch, det, maps), **num}
     emit({"phase": "batch", "part": "4ch", "model_scale": "n", **four})
+    rows_4ch = [r["merged_for_pr"] for r in res["per_image"]]
     del det
 
     maps = [synthetic_map(s)[0] for s in DUAL_BATCH_SEEDS]
-    det = build_detector(DUAL)
+    det = build_detector(DUAL, **F32)
     res, num = run_modes(torch, E, det, maps)
     if any(n for mode in num.values() for n in mode["launches"].values()):
         raise AssertionError("the 3-channel path ran an EDT kernel")
@@ -956,7 +981,8 @@ def phase_batch(torch, E) -> dict:
           "tile_gather": tile_gather_seconds(torch, det, maps), **num})
     phase_sheets(torch, det, maps)
     return {"batch": four["batch"]["launches"],
-            "stream": four["stream"]["launches"]}
+            "stream": four["stream"]["launches"],
+            "float32_results": {"4ch": rows_4ch, "dual": res["per_image"]}}
 
 
 def phase_sheets(torch, det, maps) -> None:
@@ -1020,7 +1046,8 @@ def phase_crop(torch, E, img) -> dict:
     H, W = crop.shape[:2]
     out = {}
     for method in ("percentile", "otsu"):
-        kw = {"channels": 4, "dt_edge": DTEdgeConfig(bin_method=method)}
+        kw = {"channels": 4, "dt_edge": DTEdgeConfig(bin_method=method),
+              **F32}
         det = build_detector([(416, 100, CKPT)], **kw)
         det.predict_crop(crop)
         with PathKernels(E) as rec:
@@ -1160,8 +1187,9 @@ def phase_convert(torch, img) -> None:
                       r"mismatched=(\d+)", text.getvalue())
         if m is None or m.group(2) != "0" or m.group(4) != "0":
             raise AssertionError(f"convert report: {text.getvalue()}")
-        rows = [build_detector([(416, 100, ck)], channels=4).detect_image(
-            img)["merged_for_pr"] for ck in (CKPT, out)]
+        rows = [build_detector([(416, 100, ck)], channels=4,
+                               **F32).detect_image(img)["merged_for_pr"]
+                for ck in (CKPT, out)]
         if not np.array_equal(*rows):
             raise AssertionError("the converted checkpoint's rows differ "
                                  "from the committed checkpoint's")
@@ -1204,7 +1232,7 @@ def phase_random(torch, E) -> dict:
     offset = float(cal["params"]["l23"]["cv3_0_2"]["bias"][0]
                    - variables["params"]["l23"]["cv3_0_2"]["bias"][0])
     cfg = dataclasses.replace(PRESETS["detect_416_4ch"], scales=(
-        ScaleConfig(416, 100, model_scale="x"),))
+        ScaleConfig(416, 100, model_scale="x"),), **F32)
     det = TiledDetector(cfg, {416: cal})
     maps = [synthetic_map(s)[0] for s in RANDOM_SEEDS]
     det.detect_images(maps)
@@ -1400,7 +1428,7 @@ def train_3ch(torch, tmp: str, smi: str) -> tuple:
                                            "map_size"))
     cfg = TrainConfig(tile_size=ts, overlap=ov, batch_size=bs,
                       model_scale=TRAIN["scale"], channels=3, epochs=1,
-                      plots=False)
+                      plots=False, **F32)
     lst, pixels, bgr = write_split(tmp, "train", TRAIN_SEEDS, ts, ov, size)
     vlst, vpixels, _ = write_split(tmp, "val", (VAL_SEED,), ts, ov, size)
     train_ds = TileDataset(lst, ts, 3, reader=pixels.__getitem__)
@@ -1448,7 +1476,8 @@ def train_3ch(torch, tmp: str, smi: str) -> tuple:
 
     # the written checkpoint, read back by the detector
     vimg, _ = synthetic_map(VAL_SEED, H=size, W=size)
-    det = build_detector([(ts, ov, os.path.join(run_dir, "last.ckpt"))])
+    det = build_detector([(ts, ov, os.path.join(run_dir, "last.ckpt"))],
+                         **F32)
     rows = det.detect_image(vimg)["merged_for_pr"]
     check_rows(rows, *vimg.shape[:2], det.cfg.conf_thr_predict)
     del det
@@ -1525,7 +1554,7 @@ def train_4ch(torch, E, tmp: str, bgr: np.ndarray) -> dict:
     pixels = dict(zip(paths, hwc))
     ds = TileDataset(f"{tmp}/train.txt", ts, 4, reader=pixels.__getitem__)
     cfg = TrainConfig(tile_size=ts, batch_size=bs, model_scale="n",
-                      channels=4, epochs=1, plots=False)
+                      channels=4, epochs=1, plots=False, **F32)
     state = TR.create_train_state(cfg, len(ds) // bs)
     TR.warm_start_state(CKPT, state, expect={"model_scale": "n",
                                              "channels": 4})
@@ -1554,9 +1583,11 @@ def tree_leaves(tree: dict, prefix: str = ""):
             yield prefix + k, np.asarray(v)
 
 
-def train_card_vs_cpu(torch, tmp: str, card: str = "cuda") -> dict:
+def train_card_vs_cpu(torch, tmp: str, card: str = "cuda",
+                      dtype: str = "float32") -> dict:
     """The loader's batches and one n-scale step at tile 64, batch 2 from
-    ``train128.ckpt`` on the same batch, on the card and on the CPU."""
+    ``train128.ckpt`` on the same batch, on the card and on the CPU, in
+    ``dtype``: float32 held to ``STEP_RTOL``, bf16 to ``BF16_STEP``."""
     from oriented_object_detection_tpu_torch.config import TrainConfig
     from oriented_object_detection_tpu_torch.data.loader import TileDataset
     from oriented_object_detection_tpu_torch.models.weights import (
@@ -1578,8 +1609,10 @@ def train_card_vs_cpu(torch, tmp: str, card: str = "cuda") -> dict:
     batch = on_cpu[0]
     if not batch["gt_mask"].any():
         raise AssertionError("the step batch has no box")
-    cfg = TrainConfig(tile_size=64, batch_size=2, model_scale="n", epochs=3)
-    weights = torch_state_from_jax(variables_from_checkpoint(STEP_CKPT))
+    cfg = TrainConfig(tile_size=64, batch_size=2, model_scale="n", epochs=3,
+                      compute_dtype=dtype)
+    start = variables_from_checkpoint(STEP_CKPT)
+    weights = torch_state_from_jax(start)
     out = {}
     for dev in (card, "cpu"):
         st = TR.create_train_state(cfg, 4, device=dev)
@@ -1588,13 +1621,21 @@ def train_card_vs_cpu(torch, tmp: str, card: str = "cuda") -> dict:
         m = TR.train_step(st, {k: v.to(dev) for k, v in batch.items()}, cfg)
         out[dev] = (m.cpu().numpy(), TR.checkpoint_payload(st))
     (mc, pc), (mh, ph) = out[card], out["cpu"]
+    if mc[4] != mh[4] or mc[4] <= 0:
+        raise AssertionError(f"fg count card {mc[4]} cpu {mh[4]}")
+    if dtype == "bfloat16":
+        gap = check_bf16_step("card against CPU", start, [out[card]],
+                              [out["cpu"]])
+        return {"model_scale": "n", "tile_size": 64, "batch": 2,
+                "compute_dtype": dtype,
+                "metrics_card": dict(zip(TR.METRIC_KEYS, mc.tolist())),
+                "metrics_cpu": dict(zip(TR.METRIC_KEYS, mh.tolist())),
+                "gap": gap, "bound": BF16_STEP}
     worst = {"loss": max_rel(mh[:4], mc[:4])}
     for key in ("params", "batch_stats"):
         cpu = dict(tree_leaves(ph[key]))
         worst[key] = max(max_rel(cpu[k], v) for k, v in
                          tree_leaves(pc[key]))
-    if mc[4] != mh[4] or mc[4] <= 0:
-        raise AssertionError(f"fg count card {mc[4]} cpu {mh[4]}")
     for key, tol in STEP_RTOL.items():
         if not worst[key] <= tol:
             raise AssertionError(f"card and CPU steps differ: {key} "
@@ -1616,6 +1657,468 @@ def phase_train(torch, E, smi: str) -> dict:
         emit({"phase": "train", "part": "card_vs_cpu", **step})
     return {"launches": c4["launches"],
             "seconds_per_step": x3["seconds_per_step"]}
+
+
+# ---------------------------------------------------------------------------
+# bf16, the default compute dtype
+# ---------------------------------------------------------------------------
+
+# bf16 rows against the float32 rows of the same maps, by the rule of the
+# CPU rows test (``tests/test_torch_bf16_rows.py``): rows with conf >= 0.35
+# paired one to one by class and IoU >= 0.5, a row within 0.05 of the 0.35
+# cut may lack a partner, and of the rows above it at most 1% (rounded
+# down: none below 100 rows) may, where bf16 flips a class or an NMS or
+# merge decision; the pairs' conf within 0.05 (the margin, so that no pair
+# can cross the cut unseen). The pairs' corner distance is reported: after
+# the merge across overlapping tiles, a pair may be two tiles' views of one
+# object, a few pixels apart (on a one-tile map on the CPU the JAX
+# package's own bf16 rows came within 0.365 px and 0.0286 of its float32
+# rows). The rule holds the rows of each scale; the fused rows of two
+# scales are reported: the cross-scale consensus keeps the stronger row of
+# a pair, or drops a row whose partner crosses its thresholds
+# (``infer/fusion.py``), so a last-bit difference there moves a row of any
+# confidence.
+BF16_ROWS = {"conf": 0.35, "margin": 0.05, "iou": 0.5, "dconf": 0.05}
+# bf16 train steps against float32 steps from the same state and batches
+# (and the card's bf16 step against the CPU's), both at step 0 as ``fit``
+# starts: each loss part's relative difference, root mean square over the
+# batches, within 1e-2 (the CPU step test's floor, 2.56 bf16 epsilons); over
+# the leaves that moved (at step 0 the bias group alone), the median
+# relative L2 distance of the updates within 1.25 times the JAX package's
+# own bf16-versus-float32 median at step 0 on the CPU
+# (``tests/test_torch_bf16_train.py`` prints it, YOLO11n-OBB: 0.0936 for the
+# parameters, 0.0239 for the BatchNorm statistics)
+BF16_STEP = {"loss": 1e-2, "params": 1.25 * 0.0936,
+             "batch_stats": 1.25 * 0.0239}
+
+
+def pair_bf16_rows(a: np.ndarray, b: np.ndarray) -> dict:
+    """Pairs ``a``'s rows (bf16) with ``b``'s (float32) by ``BF16_ROWS``:
+    the pair count, the largest corner distance and |dconf| over the pairs,
+    the rows with conf >= 0.40 of each side, and each such row left without
+    a partner, with the row of the other side it overlaps most (any
+    class)."""
+    from oriented_object_detection_tpu_torch.utils import native
+
+    lo = BF16_ROWS["conf"] - BF16_ROWS["margin"]
+    hi = BF16_ROWS["conf"] + BF16_ROWS["margin"]
+    a, b = a[a[:, 9] >= lo], b[b[:, 9] >= lo]
+    overlap = native.quad_iou_matrix(np.ascontiguousarray(a[:, :8]),
+                                     np.ascontiguousarray(b[:, :8])) \
+        if len(a) and len(b) else np.zeros((len(a), len(b)))
+    iou = np.where(a[:, 8:9] == b[None, :, 8], overlap, 0.0)
+    used_a, used_b = np.zeros(len(a), bool), np.zeros(len(b), bool)
+    dist, dconf, pairs = 0.0, 0.0, 0
+    for i in np.argsort(-a[:, 9], kind="stable"):
+        cand = np.where(~used_b & (iou[i] >= BF16_ROWS["iou"]), iou[i], -1.0)
+        if not len(b) or cand.max() < BF16_ROWS["iou"]:
+            continue
+        j = int(cand.argmax())
+        used_a[i] = used_b[j] = True
+        if max(a[i, 9], b[j, 9]) < BF16_ROWS["conf"]:
+            continue
+        p, q = a[i, :8].reshape(4, 2), b[j, :8].reshape(4, 2)
+        dist = max(dist, min(float(np.linalg.norm(
+            p - np.roll(q, k, axis=0), axis=1).max()) for k in range(4)))
+        dconf = max(dconf, abs(float(a[i, 9] - b[j, 9])))
+        pairs += 1
+    lone = []
+    for side, rows, used, other, ov in (("bf16", a, used_a, b, overlap),
+                                        ("float32", b, used_b, a,
+                                         overlap.T)):
+        for i in np.flatnonzero(~used & (rows[:, 9] >= hi)):
+            k = int(ov[i].argmax()) if len(other) else None
+            lone.append({"side": side, "cls": int(rows[i, 8]),
+                         "conf": float(rows[i, 9]),
+                         "nearest": None if k is None else {
+                             "iou": float(ov[i, k]),
+                             "cls": int(other[k, 8]),
+                             "conf": float(other[k, 9])}})
+    return {"pairs": pairs, "max_corner_px": dist, "max_dconf": dconf,
+            "rows": max(int((a[:, 9] >= hi).sum()),
+                        int((b[:, 9] >= hi).sum())), "unpaired": lone}
+
+
+def pair_maps(got: list, ref: list, label: str, strict: bool = True) -> dict:
+    """``pair_bf16_rows`` map by map (bf16 ``got`` against float32 ``ref``):
+    the pairs and rows summed, the largest gaps, the unpaired rows. With
+    ``strict``, raises unless the pairs' |dconf| is within
+    ``BF16_ROWS["dconf"]`` and at most 1% of the rows (rounded down) lack a
+    partner."""
+    out = [pair_bf16_rows(a, b) for a, b in zip(got, ref)]
+    res = {"pairs": sum(o["pairs"] for o in out),
+           "rows": sum(o["rows"] for o in out),
+           "max_corner_px": max(o["max_corner_px"] for o in out),
+           "max_dconf": max(o["max_dconf"] for o in out),
+           "unpaired": [{"map": i, **u} for i, o in enumerate(out)
+                        for u in o["unpaired"]]}
+    if strict and (len(res["unpaired"]) > res["rows"] // 100
+                   or res["max_dconf"] > BF16_ROWS["dconf"]):
+        raise AssertionError(f"{label}: {res}")
+    return res
+
+
+def conv_output_dtypes(torch, models) -> tuple:
+    """Forward hooks on every ConvBN and head conv of ``models``: (the set of
+    their output dtypes, filled as they run; the hooks, to remove)."""
+    from oriented_object_detection_tpu_torch.models import layers as TL
+
+    seen = set()
+    hooks = [m.register_forward_hook(lambda m, i, o: seen.add(str(o.dtype)))
+             for model in models for m in model.modules()
+             if isinstance(m, (TL.ConvBN, TL.Conv2d))]
+    return seen, hooks
+
+
+def bf16_dual(torch, f32: list, profile: int) -> dict:
+    """``detect_dual`` at the defaults (bf16, the int8 x-scale checkpoints)
+    over the batch phase's eight maps: every conv output bf16, seconds a
+    map one at a time (median of 5) and through ``detect_images``, peak
+    memory, device busy time; each scale's rows paired with the float32
+    results ``f32`` of the same maps, the fused rows reported; the metric
+    block of one map."""
+    import dataclasses
+
+    from oriented_object_detection_tpu_torch.eval import metrics as M
+    from oriented_object_detection_tpu_torch.infer.pipeline import (
+        build_detector)
+
+    made = [synthetic_map(s) for s in DUAL_BATCH_SEEDS]
+    maps = [m for m, _ in made]
+    det = build_detector(DUAL)
+    if det.cfg.compute_dtype != "bfloat16":
+        raise AssertionError(f"detect_dual defaults to "
+                             f"{det.cfg.compute_dtype}")
+    seen, hooks = conv_output_dtypes(torch, det.models.values())
+    det.detect_image(maps[0])
+    for h in hooks:
+        h.remove()
+    if seen != {"torch.bfloat16"}:
+        raise AssertionError(f"conv outputs {seen}, not bf16 alone")
+    times = seconds_per_map(torch, det, maps[0])
+    torch.cuda.reset_peak_memory_stats()
+    per_map = [det.detect_image(m) for m in maps]
+    peak_one = torch.cuda.max_memory_allocated() / 2 ** 30
+    rows = [r["merged_for_pr"] for r in per_map]
+    for r in rows:
+        check_rows(r, 1024, 1024, det.cfg.conf_thr_predict)
+    paired = {str(ts): pair_maps([r["by_scale"][ts] for r in per_map],
+                                 [r["by_scale"][ts] for r in f32],
+                                 f"bf16 dual {ts}")
+              for ts in (128, 416)}
+    paired["fused"] = pair_maps(rows, [r["merged_for_pr"] for r in f32],
+                                "bf16 dual fused", strict=False)
+    det.detect_images(maps)
+    torch.cuda.reset_peak_memory_stats()
+    batch = [wall_seconds(torch, lambda: det.detect_images(maps))[1]
+             for _ in range(3)]
+    peak_batch = torch.cuda.max_memory_allocated() / 2 ** 30
+    busy, ops = device_busy(torch, lambda: det.detect_images(maps))
+    if profile:
+        phase_profile(torch, det, maps[0], profile, "bf16_dual_profile")
+
+    det.cfg = dataclasses.replace(det.cfg, calculate_metrics=True)
+    mres = det.detect_image(maps[0])
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "map.png")
+        open(path, "wb").close()
+        block = M.run_fusion_eval(
+            {path: mres["merged_for_pr"]}, tmp, tmp,
+            iou_thr=det.cfg.metrics_iou,
+            dets_map={path: mres["merged_for_map"]},
+            cache=M.GTCache(loader=lambda _: made[0][1]),
+            map_min_score=det.cfg.map_min_score)
+    numbers = [v for v in block.values() for v in np.ravel(v)]
+    if len(block) != 8 or not all(np.isfinite(v) and 0.0 <= v <= 1.0
+                                  for v in numbers):
+        raise AssertionError(f"bf16 metric block out of range: {block}")
+    wall = statistics.median(batch)
+    return {"maps": len(maps), "map": [1024, 1024], "model_scale": "x",
+            "conv_output_dtypes": sorted(seen),
+            "seconds_per_map": statistics.median(times),
+            "seconds_per_map_all": times, "peak_memory_gib": peak_one,
+            "batch_seconds_per_map": wall / len(maps),
+            "batch_seconds_per_map_all": [t / len(maps) for t in batch],
+            "batch_peak_memory_gib": peak_batch,
+            "batch_device_busy_ms_per_map": busy / len(maps),
+            "batch_idle_share": 1.0 - busy / (wall * 1e3),
+            "batch_device_ops_per_map": ops / len(maps),
+            "rows": [len(r) for r in rows],
+            "float32_rows": [len(r["merged_for_pr"]) for r in f32],
+            "paired_with_float32": paired,
+            "metrics": {k: np.ravel(v).tolist() for k, v in block.items()}}
+
+
+def bf16_4ch(torch, E, f32_rows: list, profile: int) -> dict:
+    """``detect_416_4ch`` in bf16 over the batch phase's four maps, one at a
+    time and in one batch: K1 and K2 launched (once a map, once for the
+    batch), every output bit-equal to its plain version on the same input;
+    rows paired with the float32 rows; with ``profile``, the first map
+    profiled as the slice is (``bf16_4ch_profile``)."""
+    from oriented_object_detection_tpu_torch.infer.pipeline import (
+        build_detector)
+
+    maps = [synthetic_map(s, H=h, W=w)[0]
+            for s, (h, w) in zip(BATCH_SEEDS, BATCH_SHAPES)]
+    det = build_detector([(416, 100, CKPT)], channels=4)
+    if det.dtype != torch.bfloat16:
+        raise AssertionError(f"the 4ch slice runs {det.dtype}")
+    out = {}
+    for mode, fn, n in (
+            ("per_image", lambda: [det.detect_image(m) for m in maps],
+             len(maps)),
+            ("batch", lambda: det.detect_images(maps), 1)):
+        fn()
+        with PathKernels(E) as rec:
+            reset_launches(E)
+            res, sec = wall_seconds(torch, fn)
+            launches = dict(E.LAUNCHES)
+        if launches != {k: n for k in KERNELS}:
+            raise AssertionError(f"bf16 4ch {mode}: launches {launches}, "
+                                 f"not {n} each")
+        out[mode] = {"launches": launches,
+                     "kernels_bit_equal_to_plain": rec.check(
+                         torch, f"bf16 4ch {mode}"),
+                     "seconds_per_map": sec / len(maps),
+                     "rows": [len(r["merged_for_pr"]) for r in res],
+                     "paired_with_float32": pair_maps(
+                         [r["merged_for_pr"] for r in res], f32_rows,
+                         f"bf16 4ch {mode}")}
+    if profile:
+        phase_profile(torch, det, maps[0], profile, "bf16_4ch_profile")
+    return out
+
+
+@contextlib.contextmanager
+def cv2_stand_in():
+    """``CV2_STAND_IN`` as the ``cv2`` module inside the block."""
+    import types
+
+    mod = types.ModuleType("cv2")
+    exec(CV2_STAND_IN, mod.__dict__)
+    saved = sys.modules.get("cv2")
+    sys.modules["cv2"] = mod
+    try:
+        yield
+    finally:
+        if saved is None:
+            del sys.modules["cv2"]
+        else:
+            sys.modules["cv2"] = saved
+
+
+def bf16_cli(torch, img: np.ndarray) -> dict:
+    """``cli.py detect`` at the reference's two scales with no dtype
+    setting, on one map: its models hold bf16 weights and give bf16 conv
+    outputs, and it writes the jpg and the xlsx (through ``cv2_stand_in``:
+    the card's machine has no cv2)."""
+    from oriented_object_detection_tpu_torch import cli
+    from oriented_object_detection_tpu_torch.infer import pipeline as P
+
+    built, build = [], P.build_detector
+
+    def spy(*a, **k):
+        det = build(*a, **k)
+        built.append((det, *conv_output_dtypes(torch, det.models.values())))
+        return det
+
+    with tempfile.TemporaryDirectory() as tmp:
+        src, dst = os.path.join(tmp, "in"), os.path.join(tmp, "out")
+        os.makedirs(src)
+        with open(os.path.join(src, "map0.png"), "wb") as f:
+            np.save(f, img)
+        P.build_detector = spy
+        try:
+            with cv2_stand_in():
+                _, sec = wall_seconds(torch, lambda: cli.main([
+                    "detect", "--input", src, "--output", dst, "--scales",
+                    ",".join(f"{ts}:{ov}={ck}" for ts, ov, ck in DUAL)]))
+        finally:
+            P.build_detector = build
+        files = sorted(os.listdir(dst))
+        with zipfile.ZipFile(os.path.join(dst, "map0.xlsx")) as z:
+            sheet = z.read("xl/worksheets/sheet1.xml").decode()
+    (det, seen, hooks), = built
+    for h in hooks:
+        h.remove()
+    weights = {str(p.dtype) for m in det.models.values()
+               for p in m.parameters()}
+    if det.cfg.compute_dtype != "bfloat16" or weights != {"torch.bfloat16"} \
+            or seen != {"torch.bfloat16"}:
+        raise AssertionError(f"cli detect: {det.cfg.compute_dtype}, weights "
+                             f"{weights}, conv outputs {seen}")
+    if files != ["map0.xlsx", "map0_detected.jpg"] or \
+            sheet.count("<row ") < 2:
+        raise AssertionError(f"cli detect wrote {files}")
+    return {"compute_dtype": det.cfg.compute_dtype, "weights": sorted(weights),
+            "conv_output_dtypes": sorted(seen), "files": files,
+            "xlsx_rows": sheet.count("<row ") - 1, "seconds": sec}
+
+
+def step_gap(start: dict, a: list, b: list) -> dict:
+    """Steps ``a`` against steps ``b``, each from ``start`` ({'params',
+    'batch_stats'} trees), one pair a batch, each step (metrics, trees
+    after it): per loss part the root mean square over the batches of the
+    relative difference, and per tree the median over the leaves that moved
+    in ``b`` of |update_a - update_b| / |update_b| (L2 over the batches)."""
+    ma, mb = (np.stack([m for m, _ in x])[:, :4] for x in (a, b))
+    out = {"loss_parts": np.sqrt(np.mean(((ma - mb) / mb) ** 2,
+                                         axis=0)).tolist()}
+    out["loss"] = max(out["loss_parts"])
+    for key in ("params", "batch_stats"):
+        s = dict(tree_leaves(start[key]))
+        ua = [dict(tree_leaves(t[key])) for _, t in a]
+        num, den = {}, {}
+        for ta, (_, tb) in zip(ua, b):
+            for k, vb in tree_leaves(tb[key]):
+                db = vb - s[k]
+                num[k] = num.get(k, 0.0) + np.sum((ta[k] - s[k] - db) ** 2)
+                den[k] = den.get(k, 0.0) + np.sum(db ** 2)
+        rel = [np.sqrt(num[k] / den[k]) for k in den if den[k] > 0]
+        out[key] = float(np.median(rel))
+        out[f"{key}_moved"] = len(rel)
+    return out
+
+
+def check_bf16_step(label: str, start: dict, a: list, b: list) -> dict:
+    """``step_gap`` within ``BF16_STEP``; the numbers are emitted first."""
+    gap = step_gap(start, a, b)
+    emit({"phase": "bf16", "part": "step_gap", "label": label, **gap,
+          "bound": BF16_STEP})
+    bad = [f"{k} {gap[k]} > {v}" for k, v in BF16_STEP.items()
+           if not gap[k] <= v]
+    if bad:
+        raise AssertionError(f"{label}: " + "; ".join(bad))
+    return gap
+
+
+def float32_state(torch, state) -> dict:
+    """Raises unless every parameter, gradient, momentum buffer, EMA leaf
+    and BatchNorm statistic of ``state`` is float32; returns their
+    counts."""
+    model = state.model
+    found = {
+        "params": [p.dtype for p in model.parameters()],
+        "grads": [p.grad.dtype for p in model.parameters()
+                  if p.grad is not None],
+        "momentum": [state.opt.state[p]["momentum_buffer"].dtype
+                     for p in model.parameters() if p in state.opt.state],
+        "ema": [p.dtype for p in state.ema.parameters()],
+        "statistics": [b.dtype for n, b in model.named_buffers()
+                       if n.endswith(("running_mean", "running_var"))]}
+    n = len(found["params"])
+    for key, dtypes in found.items():
+        if set(dtypes) != {torch.float32} or (
+                key != "statistics" and len(dtypes) != n):
+            raise AssertionError(f"{key} after a bf16 step: "
+                                 f"{sorted(set(map(str, dtypes)))}")
+    return {k: len(v) for k, v in found.items()}
+
+
+def bf16_train(torch, tmp: str, smi: str) -> dict:
+    """``train_416`` at the default bf16: the first step against the float32
+    step from the same warm start and batch (``BF16_STEP``), then ``fit``
+    for one epoch of 4 steps (finite losses, float32 optimizer state,
+    seconds a step, peak memory) and two profiled steps."""
+    import dataclasses
+
+    from oriented_object_detection_tpu_torch.config import TrainConfig
+    from oriented_object_detection_tpu_torch.data.loader import TileDataset
+    from oriented_object_detection_tpu_torch.models.weights import (
+        jax_trees_from_torch_state)
+    from oriented_object_detection_tpu_torch.train import trainer as TR
+
+    ts, ov, bs, size = (TRAIN[k] for k in ("tile_size", "overlap", "batch",
+                                           "map_size"))
+    cfg = TrainConfig(tile_size=ts, overlap=ov, batch_size=bs,
+                      model_scale=TRAIN["scale"], channels=3, epochs=1,
+                      plots=False)
+    if cfg.compute_dtype != "bfloat16":
+        raise AssertionError(f"train_416 defaults to {cfg.compute_dtype}")
+    lst, pixels, _ = write_split(tmp, "train", TRAIN_SEEDS, ts, ov, size)
+    train_ds = TileDataset(lst, ts, 3, reader=pixels.__getitem__)
+    steps_per_epoch = len(train_ds) // bs
+    expect = {"model_scale": TRAIN["scale"], "channels": 3}
+
+    def warm(c):
+        st = TR.create_train_state(c, steps_per_epoch)
+        return TR.warm_start_state(TRAIN["ckpt"], st, expect=expect)
+
+    # the first step of fit (step 0) from the warm start, on each of the
+    # epoch's first four batches, in bf16 and in float32
+    first = list(itertools.islice(train_ds.batches(
+        bs, np.random.RandomState(cfg.seed)), 4))
+    trees = lambda st: jax_trees_from_torch_state(st.model.state_dict())
+    one = {}
+    for dtype in ("bfloat16", "float32"):
+        c = dataclasses.replace(cfg, compute_dtype=dtype)
+        st = warm(c)
+        start, saved = trees(st), {k: v.clone() for k, v in
+                                   st.model.state_dict().items()}
+        one[dtype] = []
+        for b in first:
+            st.model.load_state_dict(saved)
+            st.opt.state.clear()
+            st.step = 0
+            m = TR.train_step(st, b, c)
+            one[dtype].append((m.cpu().numpy(), trees(st)))
+        del st, saved
+        torch.cuda.empty_cache()
+    gap = check_bf16_step("bf16 against float32", start, one["bfloat16"],
+                          one["float32"])
+
+    state = warm(cfg)
+    rng = np.random.RandomState(cfg.seed)
+    torch.cuda.reset_peak_memory_stats()
+    with step_recorder(torch, TR) as steps:
+        TR.fit(state, cfg, lambda e: train_ds.batches(bs, rng),
+               ckpt_dir=os.path.join(tmp, "run_bf16"))
+    peak = torch.cuda.max_memory_allocated()
+    check_steps(steps, steps_per_epoch, "bf16 x-scale")
+    counts = float32_state(torch, state)
+    batches = list(itertools.islice(train_ds.batches(
+        bs, np.random.RandomState(2)), 2))
+    prof = profile_steps(torch, TR, state, batches, cfg)
+    warm_s = [s["seconds"] for s in steps[1:]]
+    return {"model_scale": cfg.model_scale, "channels": 3, "tile_size": ts,
+            "batch": bs, "compute_dtype": cfg.compute_dtype,
+            "steps": len(steps),
+            "seconds_per_step": statistics.median(warm_s),
+            "seconds_per_step_all": [s["seconds"] for s in steps],
+            "losses": [s["metrics"] for s in steps],
+            "peak_memory_gib": peak / 2 ** 30, "nvidia_smi": smi,
+            "float32_state": counts,
+            "first_step": {"metrics": {dtype: [dict(zip(
+                TR.METRIC_KEYS, m.tolist())) for m, _ in runs]
+                for dtype, runs in one.items()}, "gap": gap,
+                "bound": BF16_STEP},
+            "profile": prof,
+            "idle_share_unprofiled": 1.0 - prof["device_busy_ms"] / (
+                statistics.median(warm_s) * 1e3)}
+
+
+def phase_bf16(torch, E, smi: str, f32: dict, img: np.ndarray,
+               profile: int) -> dict:
+    """bf16, the default compute dtype, on every path that runs it:
+    ``detect_dual`` (``bf16_dual``), the 4ch slice (``bf16_4ch``),
+    ``cli.py detect`` (``bf16_cli``), ``train_416`` (``bf16_train``) and an
+    n-scale bf16 step on the card against the CPU's. Any failure raises: a
+    bf16 path that does not run is not replaced by float32."""
+    if not torch.cuda.is_bf16_supported():
+        raise AssertionError("the card does not support bf16")
+    t0 = time.perf_counter()
+    dual = bf16_dual(torch, f32["dual"], profile)
+    emit({"phase": "bf16", "part": "dual", **dual})
+    four = bf16_4ch(torch, E, f32["4ch"], profile)
+    emit({"phase": "bf16", "part": "4ch", "model_scale": "n", **four})
+    emit({"phase": "bf16", "part": "cli", **bf16_cli(torch, img)})
+    with tempfile.TemporaryDirectory() as tmp:
+        train = bf16_train(torch, tmp, smi)
+        emit({"phase": "bf16", "part": "train", **train})
+        step = train_card_vs_cpu(torch, tmp, dtype="bfloat16")
+    emit({"phase": "bf16", "part": "card_vs_cpu", **step,
+          "phase_seconds": time.perf_counter() - t0})
+    return {mode: four[mode]["launches"] for mode in four}
 
 
 DIST_SEEDS = (41, 42)        # the two 1024x1024 maps detected under --dist
@@ -1692,7 +2195,7 @@ def dist_train(torch, inputs: dict, run_dir: str, dtype: str) -> dict:
     ts, bs = train["tile_size"], train["batch"]
     cfg = TrainConfig(tile_size=ts, overlap=train["overlap"], batch_size=bs,
                       model_scale=train["scale"], channels=3, epochs=1,
-                      plots=False)
+                      plots=False, **F32)
     train_ds = TileDataset(inputs["list"], ts, 3,
                            reader=inputs["pixels"].__getitem__)
     val_ds = TileDataset(inputs["vlist"], ts, 3,
@@ -1704,6 +2207,10 @@ def dist_train(torch, inputs: dict, run_dir: str, dtype: str) -> dict:
     if dtype == "float64":
         state.model.double()
         state.ema.double()
+        # ``train_step`` casts the images to the config's float32; the
+        # control's model takes them back to float64
+        forward = state.model.forward
+        state.model.forward = lambda x: forward(x.double())
     else:
         out["fitness_warm_start"] = validate_tiles(
             state.eval_model(), val_ds, cfg, shard_across_processes=True)
@@ -1764,7 +2271,7 @@ def dist_run(torch, E, inputs: dict, run_dir: str,
     PD.barrier()
     out.update(dist_train(torch, inputs, run_dir, dtype))
 
-    det = build_detector([(416, 100, inputs["ckpt4"])], channels=4)
+    det = build_detector([(416, 100, inputs["ckpt4"])], channels=4, **F32)
     with PathKernels(E) as rec:
         reset_launches(E)
         out["detect_4ch"] = det.detect_images(inputs["maps"])
@@ -1772,7 +2279,7 @@ def dist_run(torch, E, inputs: dict, run_dir: str,
         out["detect_4ch_launches"] = dict(E.LAUNCHES)
     out["detect_4ch_checked"] = rec.check(torch, "dist 4ch detect")
     del det
-    det = build_detector(inputs["dual"])
+    det = build_detector(inputs["dual"], **F32)
     out["detect_dual"] = det.detect_images(inputs["maps"])
     return out
 
@@ -1971,12 +2478,24 @@ def compare_rest(label: str, res: list, ref: dict) -> tuple:
             "rows_compared": {k: len(v) for k, v in bit_equal.items()}}, fails
 
 
+# ``cli.py`` with its detectors in float32 (the CLI, like the JAX
+# package's, has no dtype flag): the dist phase holds float32 rows
+CLI_FLOAT32 = """import functools, sys
+from oriented_object_detection_tpu_torch import cli
+from oriented_object_detection_tpu_torch.infer import pipeline as P
+P.build_detector = functools.partial(P.build_detector,
+                                     compute_dtype="float32")
+cli.main(sys.argv[1:])
+"""
+
+
 def dist_cli(tmp: str, maps: list, backend: str, world: int,
              want_rows: list) -> dict:
-    """``cli.py detect --dist`` of the 4ch slice over the maps, in
-    ``world`` processes of its own joined through ``--coordinator/
-    --num-processes/--process-id``, each given its own ``--output``: process
-    0 alone writes, one jpg and one xlsx a map holding ``want_rows`` rows."""
+    """``cli.py detect --dist`` of the 4ch slice over the maps in float32
+    (``CLI_FLOAT32``), in ``world`` processes of its own joined through
+    ``--coordinator/--num-processes/--process-id``, each given its own
+    ``--output``: process 0 alone writes, one jpg and one xlsx a map
+    holding ``want_rows`` rows."""
     stand_in = os.path.join(tmp, "cv2_stand_in")
     os.makedirs(stand_in, exist_ok=True)
     with open(os.path.join(stand_in, "cv2.py"), "w") as f:
@@ -1991,7 +2510,7 @@ def dist_cli(tmp: str, maps: list, backend: str, world: int,
     coord = f"localhost:{free_port()}"
     outs = [os.path.join(tmp, f"cli_out{r}") for r in range(world)]
     wall = run_processes(
-        [[sys.executable, "-m", "oriented_object_detection_tpu_torch.cli",
+        [[sys.executable, "-c", CLI_FLOAT32,
           "detect", "--input", src, "--output", outs[r], "--scales",
           f"416:100={CKPT}", "--channels", "4", "--dist", "--coordinator",
           coord, "--num-processes", str(world), "--process-id", str(r),
@@ -2076,7 +2595,7 @@ def phase_dist(torch, E) -> dict:
         res, run_dir, backend, world = multi
         det = build_detector([(TRAIN["tile_size"], TRAIN["overlap"],
                                os.path.join(run_dir, "rank0",
-                                            "last.ckpt"))])
+                                            "last.ckpt"))], **F32)
         rows = det.detect_image(data["maps"][0])["merged_for_pr"]
         check_rows(rows, *data["maps"][0].shape[:2],
                    det.cfg.conf_thr_predict)
@@ -2099,8 +2618,8 @@ def main(argv=None) -> int:
 
     p = argparse.ArgumentParser()
     p.add_argument("--profile", type=int, default=0, metavar="MAPS",
-                   help="also profile the slice and the dual path over "
-                        "MAPS warm maps each")
+                   help="also profile the slice, the dual path and the "
+                        "bf16 dual path over MAPS warm maps each")
     p.add_argument("--dist-worker", metavar="SPEC",
                    help="(used by the dist phase) run one process of a "
                         "data-parallel run from its JSON spec")
@@ -2163,6 +2682,8 @@ def main(argv=None) -> int:
     crop = phase_crop(torch, E, img)
     phase_convert(torch, img)
     rand = phase_random(torch, E)
+    bf16 = phase_bf16(torch, E, smi, multi["float32_results"], img,
+                      args.profile)
     train = phase_train(torch, E, smi)
     dist = phase_dist(torch, E)
 
@@ -2170,9 +2691,10 @@ def main(argv=None) -> int:
             "library_ms")
     # the times are the slice-mask shape's, device only; the launches are
     # the slice's, and by path: the dual path runs neither kernel, the 4ch
-    # batch and stream, the crop, the random x-scale path and the training
-    # path's 4-channel build run both; under --dist, by process, the 4ch
-    # detection on every process and the 4ch build on process 0 alone
+    # batch and stream, the crop, the random x-scale path, the bf16 4ch
+    # slice (per map and batched) and the training path's 4-channel build
+    # run both; under --dist, by process, the 4ch detection on every
+    # process and the 4ch build on process 0 alone
     emit({"kernels": [
         {"name": name, "route": "cuda",
          "source": "oriented_object_detection_tpu_torch/csrc/edt.cu",
@@ -2181,6 +2703,8 @@ def main(argv=None) -> int:
                               "batch": multi["batch"][name],
                               "stream": multi["stream"][name],
                               "crop": crop[name], "random": rand[name],
+                              "bf16_4ch_per_map": bf16["per_image"][name],
+                              "bf16_4ch_batch": bf16["batch"][name],
                               "train_4ch_build": train["launches"][name],
                               **{path: [r[name] for r in by_rank]
                                  for path, by_rank in dist.items()}},

@@ -8,6 +8,8 @@ import dataclasses
 from dataclasses import dataclass, field
 from typing import Optional
 
+import torch
+
 # 12-entry class map (`Detect_OBB.py:44-57`).
 CLASS_NAMES = {
     0: "Landslide 1",
@@ -83,13 +85,22 @@ class DetectConfig:
     max_det_per_tile: int = 64
     pre_topk: int = 256
     dt_edge: DTEdgeConfig = field(default_factory=DTEdgeConfig)
+    # the network's compute dtype: "bfloat16" (the JAX package's default)
+    # or "float32"; parameters, decode and NMS stay float32
+    compute_dtype: str = "bfloat16"
+
+    def __post_init__(self):
+        torch_dtype(self.compute_dtype)
 
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """Training and dataset-build configuration (`Train_OBB.py:19-42`). The
-    port trains in float32 (TF32 off), so it has no ``compute_dtype``, and
-    on one device, so it has no mesh axis."""
+    """Training and dataset-build configuration (`Train_OBB.py:19-42`).
+    ``compute_dtype`` is the forward's and backward's dtype, bf16 by
+    default as in the JAX package; the parameters, their gradients, the
+    optimizer state, the EMA and the BatchNorm statistics stay float32.
+    Data parallelism is ``--dist`` (``parallel/``), so there is no mesh
+    axis."""
 
     channels: int = 3
     apply_filtered_rgb: bool = False
@@ -136,6 +147,24 @@ class TrainConfig:
     # optimizer steps per group; the steps run one after another, so the
     # result is that of single steps
     steps_per_dispatch: int = 1
+    compute_dtype: str = "bfloat16"
+
+    def __post_init__(self):
+        torch_dtype(self.compute_dtype)
+
+
+COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """The ``torch.dtype`` of a ``compute_dtype`` string; anything but
+    "bfloat16" and "float32" raises (the JAX package would quietly take
+    float32 for it)."""
+    try:
+        return COMPUTE_DTYPES[name]
+    except KeyError:
+        raise ValueError(f"compute_dtype must be one of "
+                         f"{sorted(COMPUTE_DTYPES)}, got {name!r}") from None
 
 
 def _preset_detect(**kw) -> DetectConfig:

@@ -30,7 +30,8 @@ import time
 import numpy as np
 import torch
 
-from ..config import CLASS_COLORS, CLASS_NAMES, DetectConfig, ScaleConfig
+from ..config import (CLASS_COLORS, CLASS_NAMES, DetectConfig, ScaleConfig,
+                      torch_dtype)
 from ..models import decode as D
 from ..models.fold import fold_bn_state
 from ..models.weights import (jax_trees_from_torch_state, load_checkpoint,
@@ -100,7 +101,9 @@ class TiledDetector:
     as numpy trees}, the JAX package's checkpoint format
     (``models.weights.variables_from_checkpoint``); each scale's model is
     built at its ``ScaleConfig.model_scale``. ``device=None`` runs on the
-    CUDA card; pass ``device="cpu"`` for the CPU.
+    CUDA card; pass ``device="cpu"`` for the CPU. The network computes in
+    ``cfg.compute_dtype``: the tiles are cast after ``/255`` (DT-Edge is
+    built in float32 before), decode and NMS upcast to float32.
     """
 
     def __init__(self, cfg: DetectConfig, params_by_scale: dict,
@@ -111,6 +114,7 @@ class TiledDetector:
             raise ValueError(f"duplicate tile sizes in the scales: {sizes}")
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.dtype = torch_dtype(cfg.compute_dtype)
         self.models = {}
         for sc in cfg.scales:
             # the engine's fuse() before predict: BN folded into the
@@ -120,7 +124,10 @@ class TiledDetector:
             model = YOLO11OBB(nc=cfg.nc, scale=sc.model_scale,
                               in_channels=cfg.channels, fused_bn=True)
             load_state(model, state)
-            self.models[sc.tile_size] = model.to(self.device).eval()
+            # the folded weights in the compute dtype, once: the values of
+            # flax's cast of the float32 weights at every apply
+            self.models[sc.tile_size] = model.to(self.device,
+                                                 self.dtype).eval()
         self._side_stream = None   # the card's upload stream, made on use
 
     def _conf_thr(self) -> float:
@@ -175,7 +182,7 @@ class TiledDetector:
         being tile ``first`` of the scale's batch."""
         cfg = self.cfg
         x = DT.build_multich(tiles, cfg.channels, cfg.dt_edge) / 255.0
-        out = self.models[ts](x)
+        out = self.models[ts](x.to(self.dtype))
         rbox, scores = D.decode_raw(out, ts)
         dets = D.postprocess_batch(
             rbox, scores, self._conf_thr(), cfg.engine_nms_iou,
@@ -362,7 +369,8 @@ class TiledDetector:
             self.device)
         mc = DT.build_multich(crop[None], cfg.channels, cfg.dt_edge)[0]
         x, ratio, (dw, dh) = IM.letterbox(mc.permute(1, 2, 0), ts)
-        out = self.models[ts](x.permute(2, 0, 1)[None] / 255.0)
+        out = self.models[ts]((x.permute(2, 0, 1)[None] / 255.0).to(
+            self.dtype))
         rbox, scores = D.decode_raw(out, ts)
         dets = D.postprocess_batch(
             rbox, scores, self._conf_thr(), cfg.engine_nms_iou,

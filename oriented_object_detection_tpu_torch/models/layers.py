@@ -8,6 +8,14 @@ flax's ``nn.BatchNorm`` (the JAX package's), not ``nn.BatchNorm2d``'s
 update: see ``BatchNorm``. A ConvBN whose ``fused`` flag is set runs the
 fused inference graph, conv + BN bias + SiLU, which is right once
 ``fold.fold_bn_state`` has folded the BatchNorm into the conv weights.
+
+Every module computes in its input's dtype, as flax's ``dtype=x.dtype``
+modules of the JAX package do: a conv casts its float32 weight and bias to
+that dtype in ``forward``, so the cast of the network's input alone sets
+the compute dtype (bf16 or float32) and the float32 parameters get float32
+gradients. BatchNorm takes its moments and normalises in float32 and
+returns the input's dtype; attention takes its logits and softmax in
+float32.
 """
 
 from __future__ import annotations
@@ -20,6 +28,11 @@ from ..parallel import distributed as PD
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.97  # flax's: running = 0.97 * running + 0.03 * batch
+
+
+def at_least_float32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` promoted to float32 if it is narrower (bf16), else ``x``."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
 class BatchNorm(nn.BatchNorm2d):
@@ -38,22 +51,25 @@ class BatchNorm(nn.BatchNorm2d):
         super().__init__(c, eps=BN_EPS, momentum=1.0 - BN_MOMENTUM)
 
     def forward(self, x):
+        # flax promotes a bf16 input to float32 for the moments and the
+        # normalisation and casts the result back
+        xf = at_least_float32(x)
         if not self.training:
-            return super().forward(x)
+            return super().forward(xf).to(x.dtype)
         if PD.world() > 1:
-            mean, var = global_moments(x)
+            mean, var = global_moments(xf)
         else:
-            mean = x.mean(dim=(0, 2, 3))
-            var = torch.clamp_min((x * x).mean(dim=(0, 2, 3)) - mean * mean,
-                                  0.0)
+            mean = xf.mean(dim=(0, 2, 3))
+            var = torch.clamp_min((xf * xf).mean(dim=(0, 2, 3))
+                                  - mean * mean, 0.0)
         with torch.no_grad():
             self.running_mean.mul_(BN_MOMENTUM).add_(
                 mean.detach() * (1.0 - BN_MOMENTUM))
             self.running_var.mul_(BN_MOMENTUM).add_(
                 var.detach() * (1.0 - BN_MOMENTUM))
         mul = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mean[:, None, None]) * mul[:, None, None] \
-            + self.bias[:, None, None]
+        return ((xf - mean[:, None, None]) * mul[:, None, None]
+                + self.bias[:, None, None]).to(x.dtype)
 
 
 def global_moments(x: torch.Tensor) -> tuple:
@@ -61,7 +77,8 @@ def global_moments(x: torch.Tensor) -> tuple:
     package's BatchNorm under its data mesh): one all-reduce of the packed
     ``[sum x, sum x^2, count]`` a layer, through which the gradient flows
     (its backward is one more). Returns (mean, E[x^2] - mean^2 clipped at
-    0)."""
+    0), in float32 or wider whatever the dtype of ``x``."""
+    x = at_least_float32(x)
     c = x.shape[1]
     packed = PD.all_reduce_sum(torch.cat([
         x.sum(dim=(0, 2, 3)), (x * x).sum(dim=(0, 2, 3)),
@@ -71,22 +88,37 @@ def global_moments(x: torch.Tensor) -> tuple:
                                  - mean * mean, 0.0)
 
 
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` in its input's dtype, at flax's cast points
+    (``nn.Conv(dtype=x.dtype)``): the weight is cast to it and the
+    convolution rounded to it, then the bias, cast too, is added; a bf16
+    bias inside the convolution would round once, where the JAX package
+    rounds twice, and moves the train step's box loss away from the JAX
+    package's (``tests/test_torch_bf16_train.py``)."""
+
+    def forward(self, x):
+        y = self._conv_forward(x, self.weight.to(x.dtype), None)
+        if self.bias is None:
+            return y
+        return y.add_(self.bias.to(x.dtype)[:, None, None])
+
+
 class ConvBN(nn.Module):
     """Conv2d (no bias) + BatchNorm + SiLU."""
 
     def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1,
                  g: int = 1, act: bool = True):
         super().__init__()
-        self.conv = nn.Conv2d(c1, c2, k, s, k // 2, groups=g, bias=False)
+        self.conv = Conv2d(c1, c2, k, s, k // 2, groups=g, bias=False)
         self.bn = BatchNorm(c2)
         self.act = act
         self.fused = False
 
     def forward(self, x):
         if self.fused:
-            c = self.conv
-            x = F.conv2d(x, c.weight, self.bn.bias, c.stride, c.padding,
-                         c.dilation, c.groups)
+            # the folded BatchNorm is its bias, added to the convolution's
+            # output in the input's dtype, as the JAX package's FoldedBN
+            x = self.conv(x).add_(self.bn.bias.to(x.dtype)[:, None, None])
         else:
             x = self.bn(self.conv(x))
         return F.silu(x) if self.act else x
@@ -184,8 +216,12 @@ class Attention(nn.Module):
                                2 * self.key_dim + self.head_dim, N)
         q, k, v = qkv.split([self.key_dim, self.key_dim, self.head_dim],
                             dim=2)
-        attn = torch.matmul(q.transpose(-2, -1), k) * self.scale
-        attn = attn.softmax(dim=-1)
+        # logits and softmax in float32 (exact products of the bf16 q, k,
+        # as JAX's preferred_element_type=float32), the probabilities cast
+        # back for the product with v
+        attn = torch.matmul(at_least_float32(q.transpose(-2, -1)),
+                            at_least_float32(k)) * self.scale
+        attn = attn.softmax(dim=-1).to(x.dtype)
         out = torch.matmul(v, attn.transpose(-2, -1)).view(B, C, H, W)
         out = out + self.pe(v.reshape(B, C, H, W))
         return self.proj(out)

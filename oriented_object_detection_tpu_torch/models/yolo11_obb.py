@@ -12,7 +12,7 @@ import math
 import torch
 import torch.nn as nn
 
-from .layers import C2PSA, C3k2, ConvBN, SPPF, upsample2x
+from .layers import C2PSA, C3k2, Conv2d, ConvBN, SPPF, upsample2x
 
 # scale -> (depth, width, max_channels); the yolo11 yaml scales table.
 SCALES = {
@@ -40,14 +40,14 @@ class OBBHead(nn.Module):
                  c2: int, c3: int, c4: int):
         super().__init__()
         self.cv2 = nn.ModuleList(nn.Sequential(
-            ConvBN(x, c2, 3), ConvBN(c2, c2, 3), nn.Conv2d(c2, 4 * reg_max, 1))
+            ConvBN(x, c2, 3), ConvBN(c2, c2, 3), Conv2d(c2, 4 * reg_max, 1))
             for x in chs)
         self.cv3 = nn.ModuleList(nn.Sequential(
             nn.Sequential(ConvBN(x, x, 3, g=x), ConvBN(x, c3, 1)),
             nn.Sequential(ConvBN(c3, c3, 3, g=c3), ConvBN(c3, c3, 1)),
-            nn.Conv2d(c3, nc, 1)) for x in chs)
+            Conv2d(c3, nc, 1)) for x in chs)
         self.cv4 = nn.ModuleList(nn.Sequential(
-            ConvBN(x, c4, 3), ConvBN(c4, c4, 3), nn.Conv2d(c4, ne, 1))
+            ConvBN(x, c4, 3), ConvBN(c4, c4, 3), Conv2d(c4, ne, 1))
             for x in chs)
 
     def forward(self, feats):
@@ -59,7 +59,8 @@ class OBBHead(nn.Module):
 class YOLO11OBB(nn.Module):
     """Full detector. forward(x [B, C, H, W] float, already /255, H and W
     divisible by 32) -> {"box", "cls", "ang"}: per-level raw head outputs
-    [B, 4*reg_max | nc | ne, Hi, Wi]. ``fused_bn=True`` runs the fused
+    [B, 4*reg_max | nc | ne, Hi, Wi] in the input's dtype, the compute
+    dtype (``layers.py``). ``fused_bn=True`` runs the fused
     conv + bias graph, for BN-folded weights (``fold.py``)."""
 
     def __init__(self, nc: int = 12, scale: str = "x", in_channels: int = 3,

@@ -23,7 +23,7 @@ import pickle
 import numpy as np
 import torch
 
-from ..config import TrainConfig
+from ..config import TrainConfig, torch_dtype
 from ..models.weights import (jax_trees_from_torch_state, load_checkpoint,
                               load_state, torch_state_from_jax)
 from ..models.yolo11_obb import STRIDES, YOLO11OBB
@@ -206,10 +206,14 @@ def train_step(state: TrainState, batch: dict, cfg: TrainConfig
     batch's, the gradients are summed over the processes (the gradient of
     the one global loss, as the JAX package's step on the global batch
     takes it), so every process makes the same update; the metrics are
-    summed too, the global batch's."""
+    summed too, the global batch's.
+
+    The forward and backward run in ``cfg.compute_dtype`` (the images are
+    cast to it); the loss upcasts the head outputs, and the parameters,
+    gradients, momentum, EMA and BatchNorm statistics are float32."""
     set_hypers(state.opt, schedule_hypers(state.sched, state.step))
     state.model.train()
-    out = state.model(batch["images"])
+    out = state.model(batch["images"].to(torch_dtype(cfg.compute_dtype)))
     total, parts = obb_loss(out, batch["gt_labels"], batch["gt_xywhr"],
                             batch["gt_mask"], loss_config(cfg))
     state.opt.zero_grad(set_to_none=True)

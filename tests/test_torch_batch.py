@@ -28,7 +28,8 @@ CKPT = os.path.join(REPO, "assets", "bench_ckpts", "train416_4ch.ckpt")
 sys.path.insert(0, REPO)
 sys.path.insert(0, os.path.join(REPO, "tests"))
 from tools.train_synthetic import gen_map  # noqa: E402
-from torch_parity import match_one_to_one, one_torch_thread  # noqa: E402,F401
+from torch_parity import (  # noqa: E402,F401
+    match_one_to_one, one_torch_thread, port_float32)
 
 cv2 = pytest.importorskip("cv2")
 SHAPES = ((300, 500), (420, 300), (316, 316))   # 2, 2 and 1 tiles
@@ -42,7 +43,8 @@ def maps():
 
 @pytest.fixture(scope="module")
 def detector():
-    return P.build_detector([(416, 100, CKPT)], channels=4, device="cpu")
+    return P.build_detector([(416, 100, CKPT)], channels=4, device="cpu",
+                            compute_dtype="float32")
 
 
 @pytest.fixture(scope="module")
@@ -132,7 +134,8 @@ def mapdir(tmp_path_factory, maps):
     (root / "in").mkdir()
     for i, img in enumerate(maps):
         cv2.imwrite(str(root / "in" / f"map{i}.png"), img)
-    cli.main(_detect_argv(root) + ["--output", str(root / "one")])
+    with port_float32():
+        cli.main(_detect_argv(root) + ["--output", str(root / "one")])
     return root
 
 
@@ -148,7 +151,8 @@ def test_cli_modes_write_the_per_map_outputs(mapdir, maps, flags, capsys):
     """The same files as the per-map path: every map's xlsx holds rows
     within 1e-5 conf of the per-map path's, and its jpg is written."""
     out = mapdir / flags[-1].strip("-")
-    cli.main(_detect_argv(mapdir) + ["--output", str(out)] + flags)
+    with port_float32():
+        cli.main(_detect_argv(mapdir) + ["--output", str(out)] + flags)
     assert capsys.readouterr().out.count("Results saved for") == len(maps)
     for i in range(len(maps)):
         a, b = (np.asarray([r[1:] for r in read_xlsx(

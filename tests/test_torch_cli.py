@@ -33,7 +33,7 @@ CKPTS = {ts: os.path.join(REPO, "assets", "bench_ckpts", f"train{ts}.ckpt")
          for ts in (128, 416)}
 sys.path.insert(0, REPO)
 from tools.train_synthetic import gen_map  # noqa: E402
-from torch_parity import match_one_to_one  # noqa: E402
+from torch_parity import match_one_to_one, port_float32  # noqa: E402
 
 cv2 = pytest.importorskip("cv2")
 
@@ -59,9 +59,10 @@ def test_cli_dual_n_scale_writes_jpg_xlsx_and_metrics(mapdir, tmp_path,
                                                       capsys):
     inp, img = mapdir
     out = tmp_path / "out"
-    cli.main(["detect", "--input", str(inp), "--output", str(out),
-              "--ckpt128", CKPTS[128], "--ckpt416", CKPTS[416],
-              "--scale", "n", "--metrics", "--device", "cpu"])
+    with port_float32():
+        cli.main(["detect", "--input", str(inp), "--output", str(out),
+                  "--ckpt128", CKPTS[128], "--ckpt416", CKPTS[416],
+                  "--scale", "n", "--metrics", "--device", "cpu"])
     printed = capsys.readouterr().out
     assert re.search(r"--- \d+\.\d{3} seconds ---", printed)
 

@@ -43,7 +43,7 @@ def test_predict_crop_matches_jax(image, channels, size):
     h, w = size
     crop = np.ascontiguousarray(image[30:30 + h, 40:40 + w])
     det = P.build_detector([(416, 100, CKPTS[channels])], channels=channels,
-                           device="cpu")
+                           device="cpu", compute_dtype="float32")
     got = det.predict_crop(crop)
     cfg = dataclasses.replace(
         JAX_PRESETS["detect_416_4ch" if channels == 4 else "detect_416"],

@@ -59,8 +59,11 @@ from tools.train_synthetic import gen_map  # noqa: E402
 from torch_parity import one_torch_thread  # noqa: E402,F401
 
 TS, B, M, WORLD = 64, 2, 16, 2
-STEP_CFG = dict(tile_size=TS, batch_size=B, model_scale="n", epochs=3)
-FIT_CFG = dict(tile_size=TS, batch_size=4, model_scale="n", epochs=1)
+# float32, as the JAX step it is held to (the port's default is bf16)
+STEP_CFG = dict(tile_size=TS, batch_size=B, model_scale="n", epochs=3,
+                compute_dtype="float32")
+FIT_CFG = dict(tile_size=TS, batch_size=4, model_scale="n", epochs=1,
+               compute_dtype="float32")
 
 
 def _max_rel(a, b):
@@ -381,7 +384,8 @@ def test_detect_rows_match_one_process(inputs, ranks, channels):
     processes' forwards take other batch sizes)."""
     triples, ch = (([(128, 30, CKPT)], 3) if channels == "3ch"
                    else ([(416, 100, CKPT4)], 4))
-    ref = build_detector(triples, channels=ch, device="cpu").detect_images(
+    ref = build_detector(triples, channels=ch, device="cpu",
+                         compute_dtype="float32").detect_images(
         inputs["maps"])
     assert sum(len(r["merged_for_pr"]) for r in ref) > 0
     for r in ranks:

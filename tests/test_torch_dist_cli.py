@@ -4,7 +4,9 @@ package's flags (``--coordinator/--num-processes/--process-id``) and
 through torchrun's environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
 ``MASTER_ADDR``, ``MASTER_PORT``), against the same commands in one
 process. Each process gets its own ``--ckpt-dir``/``--output``: process 0
-alone writes them, and builds the dataset."""
+alone writes them, and builds the dataset. Every command runs with the
+port's configs pinned to float32 (``torch_parity.port_float32``), where the
+bounds below hold."""
 
 import csv
 import os
@@ -25,7 +27,7 @@ CKPT = os.path.join(REPO, "assets", "bench_ckpts", "train128.ckpt")
 sys.path.insert(0, REPO)
 sys.path.insert(0, os.path.join(REPO, "tests"))
 from tools.train_synthetic import gen_map  # noqa: E402
-from torch_parity import one_torch_thread  # noqa: E402,F401
+from torch_parity import one_torch_thread, port_float32  # noqa: E402,F401
 
 cv2 = pytest.importorskip("cv2")
 TS, WORLD = 64, 2
@@ -38,7 +40,8 @@ def _free_port() -> int:
 
 
 def _run_two(argv_of, via: str) -> list:
-    """``python -m ...cli`` once per process with ``argv_of(rank)``, joined
+    """The port's CLI (``torch_parity.float32_cli_main``) once per process
+    with ``argv_of(rank)``, joined
     through the flags or torchrun's environment; retried on a port-bind
     race. Returns each process's output."""
     for attempt in range(3):
@@ -47,6 +50,8 @@ def _run_two(argv_of, via: str) -> list:
         for r in range(WORLD):
             env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
             env["OMP_NUM_THREADS"] = "1"
+            env["PYTHONPATH"] = os.pathsep.join(
+                [os.path.join(REPO, "tests"), env.get("PYTHONPATH", "")])
             argv = argv_of(r) + ["--dist", "--device", "cpu"]
             if via == "flags":
                 argv += ["--coordinator", f"localhost:{port}",
@@ -57,9 +62,9 @@ def _run_two(argv_of, via: str) -> list:
                            WORLD_SIZE=str(WORLD), MASTER_ADDR="localhost",
                            MASTER_PORT=str(port))
             procs.append(subprocess.Popen(
-                [sys.executable, "-m", "oriented_object_detection_tpu_torch"
-                 ".cli"] + argv, env=env, cwd=REPO, stdout=subprocess.PIPE,
-                stderr=subprocess.STDOUT))
+                [sys.executable, "-c", "import torch_parity; "
+                 "torch_parity.float32_cli_main()"] + argv, env=env,
+                cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
         logs = []
         for p in procs:
             try:
@@ -118,8 +123,9 @@ def test_train_dist_builds_and_writes_from_process_0(data, trained):
     files = set(os.listdir(data / "run0"))
     assert {"best.ckpt", "last.ckpt", "results.csv", "args.yaml"} <= files
     # the same epoch in one process, on the tiles process 0 built
-    cli.main(_train_argv(data, data / "one") + ["--skip-cropping",
-                                                "--device", "cpu"])
+    with port_float32():
+        cli.main(_train_argv(data, data / "one") + ["--skip-cropping",
+                                                    "--device", "cpu"])
     rows = []
     for d in ("run0", "one"):
         with open(data / d / "results.csv") as f:
@@ -133,7 +139,8 @@ def test_val_dist_through_torchrun_env(data, trained, capsys):
     argv = ["val", "--ckpt", str(data / "run0" / "last.ckpt"), "--data-root",
             str(data), "--batch-size", "3"]
     logs = _run_two(lambda r: argv, "env")
-    cli.main(argv + ["--device", "cpu"])
+    with port_float32():
+        cli.main(argv + ["--device", "cpu"])
     one = capsys.readouterr().out
     line = lambda out: re.search(r"\[VAL\] mAP@0\.5=.*", out).group(0)
     assert line(logs[0]) == line(one)
@@ -155,7 +162,9 @@ def test_detect_dist_writes_once_and_matches_one_process(data, via):
             "fusion_classwise_metrics.xlsx"} <= got
     one = data / "det_one"
     if not one.exists():
-        cli.main(argv + ["--output", str(one), "--batch", "--device", "cpu"])
+        with port_float32():
+            cli.main(argv + ["--output", str(one), "--batch", "--device",
+                             "cpu"])
     a, b = (np.asarray([r[1:] for r in read_xlsx(str(d / "t0.xlsx"))[1:]],
                        np.float64) for d in (one, out.with_name(
                            out.name + "0")))

@@ -52,7 +52,7 @@ def results(image):
     the JAX detector."""
     det = P.build_detector(
         [(ts, ov, CKPTS[ts]) for ts, ov in ((128, 30), (416, 100))],
-        device="cpu")
+        device="cpu", compute_dtype="float32")
     port = {}
     for m in (False, True):
         det.cfg = dataclasses.replace(det.cfg, calculate_metrics=m)

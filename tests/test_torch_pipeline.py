@@ -29,7 +29,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CKPT = os.path.join(REPO, "assets", "bench_ckpts", "train416_4ch.ckpt")
 sys.path.insert(0, REPO)
 from tools.train_synthetic import gen_map  # noqa: E402
-from torch_parity import match_one_to_one  # noqa: E402
+from torch_parity import match_one_to_one, port_float32  # noqa: E402
 
 cv2 = pytest.importorskip("cv2")
 
@@ -41,7 +41,8 @@ def image():
 
 @pytest.fixture(scope="module")
 def detector():
-    return P.build_detector([(416, 100, CKPT)], channels=4, device="cpu")
+    return P.build_detector([(416, 100, CKPT)], channels=4, device="cpu",
+                            compute_dtype="float32")
 
 
 @pytest.fixture(scope="module")
@@ -91,8 +92,9 @@ def test_cli_detect_writes_the_detector_rows(tmp_path, image, results):
     inp, out = tmp_path / "in", tmp_path / "out"
     inp.mkdir()
     cv2.imwrite(str(inp / "map0.png"), image)
-    cli.main(["detect", "--input", str(inp), "--output", str(out),
-              "--ckpt416", CKPT, "--channels", "4", "--device", "cpu"])
+    with port_float32():
+        cli.main(["detect", "--input", str(inp), "--output", str(out),
+                  "--ckpt416", CKPT, "--channels", "4", "--device", "cpu"])
     sheet = read_xlsx(str(out / "map0.xlsx"))
     rows = results[1]["merged_for_pr"]
     assert sheet[0] == ["Class", "X1", "Y1", "X2", "Y2", "X3", "Y3", "X4",

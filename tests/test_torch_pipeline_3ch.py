@@ -37,7 +37,8 @@ def image():
 def test_single_scale_3ch_rows_match_jax(image, preset):
     sc = PRESETS[preset].scales[0]
     det = P.build_detector([(sc.tile_size, sc.overlap,
-                             CKPTS[sc.tile_size])], device="cpu")
+                             CKPTS[sc.tile_size])], device="cpu",
+                           compute_dtype="float32")
     assert det.cfg.channels == 3 and det.cfg.scales[0].model_scale == "n"
     assert det.cfg.scales == (dataclasses.replace(
         sc, checkpoint=CKPTS[sc.tile_size], model_scale="n"),)

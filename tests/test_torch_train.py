@@ -257,7 +257,8 @@ def test_train_step_matches_jax_make_train_step(weights, batch):
     statistics 1e-4, momentum 1e-3 (a gradient's reduction order); the loss
     1e-5 (``tools/torch_train_parity.py`` prints the measured values)."""
     imgs, gl, gb, gm = batch
-    cfg = TrainConfig(tile_size=TS, batch_size=B, model_scale="n", epochs=3)
+    cfg = TrainConfig(tile_size=TS, batch_size=B, model_scale="n", epochs=3,
+                      compute_dtype="float32")
     jcfg = dataclasses.replace(JaxCfg(), tile_size=TS, batch_size=B,
                                model_scale="n", compute_dtype="float32",
                                epochs=3)

@@ -125,7 +125,8 @@ def detect_case(d: dict) -> dict:
     out = {}
     for name, triples, ch in (("3ch", [(128, 30, d["ckpt128"])], 3),
                               ("4ch", [(416, 100, d["ckpt4ch"])], 4)):
-        det = build_detector(triples, channels=ch, device="cpu")
+        det = build_detector(triples, channels=ch, device="cpu",
+                             compute_dtype="float32")
         out[name] = {"images": det.detect_images(d["maps"]),
                      "stream": list(det.detect_stream(d["maps"], chunk=1))}
     return out

@@ -1,9 +1,58 @@
-"""Helpers shared by the port's parity tests: the row comparison, and a
-fixture that runs a module's PyTorch work on one intra-op thread."""
+"""Helpers shared by the port's parity tests: the row comparison, a
+fixture that runs a module's PyTorch work on one intra-op thread, and the
+float32 pin of the port's configs for the entry points that name no
+dtype."""
+
+import contextlib
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
+
+from oriented_object_detection_tpu_torch import config as C
+from oriented_object_detection_tpu_torch.infer import pipeline as P
+
+
+@dataclasses.dataclass(frozen=True)
+class DetectConfig32(C.DetectConfig):
+    compute_dtype: str = "float32"
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig32(C.TrainConfig):
+    compute_dtype: str = "float32"
+
+
+# every name through which an entry point builds a config with the default
+# dtype: ``cli.py``'s commands import ``TrainConfig`` from ``config`` when
+# they run, ``build_detector`` reads ``pipeline.DetectConfig``
+_FLOAT32_NAMES = ((C, "DetectConfig", DetectConfig32),
+                  (P, "DetectConfig", DetectConfig32),
+                  (C, "TrainConfig", TrainConfig32))
+
+
+@contextlib.contextmanager
+def port_float32():
+    """The port's configs default to ``compute_dtype="float32"`` inside the
+    block: for a test that holds float32 equalities through ``cli.py``,
+    which has no dtype flag (the JAX CLI has none either)."""
+    with pytest.MonkeyPatch.context() as mp:
+        for mod, name, cls in _FLOAT32_NAMES:
+            mp.setattr(mod, name, cls)
+        yield
+
+
+def float32_cli_main() -> None:
+    """``cli.main`` under ``port_float32``, for a test's CLI subprocess:
+    ``python -c 'import torch_parity; torch_parity.float32_cli_main()'
+    ARGS`` with ``tests/`` on ``PYTHONPATH``."""
+    import sys
+
+    from oriented_object_detection_tpu_torch import cli
+
+    with port_float32():
+        cli.main(sys.argv[1:])
 
 
 @pytest.fixture(autouse=True, scope="module")
