@@ -5,8 +5,9 @@
 
 Phases, each printing one JSON line (warnings go to stderr). The port
 computes in bf16 by default, as the JAX package does; every phase but
-``bf16`` pins ``compute_dtype="float32"`` (``F32``), so its float32
-equalities and bounds hold as before:
+``bf16``, ``model_axis`` and the dist phase's bf16 run pins
+``compute_dtype="float32"`` (``F32``), so its float32 equalities and
+bounds hold as before:
 
 1. device  - the card's name and power limit (nvidia-smi) and the float32
              matmul/convolution precision it runs with (TF32 off).
@@ -122,7 +123,24 @@ equalities and bounds hold as before:
              --num-processes/--process-id``; a numpy stand-in for cv2,
              which the card's machine lacks): process 0 alone writes.
              Seconds per step, collectives per step and peak memory per
-             process, and the phase's seconds.
+             process, and the phase's seconds. Besides, bf16 (the default)
+             at NCCL world 1: ``fit`` and ``detect_dual`` over the two maps
+             bit-equal to one process in bf16.
+15. model_axis - the model axis (``parallel/mesh.py``): YOLO11x-OBB 416,
+             global batch 16, bf16, warm-started from ``train416_x.ckpt``,
+             3 steps through the mosaic loader on the dist phase's tiles,
+             laid out by ``make_mesh(n_data, 2)`` and ``shard_train_state``
+             (parameters, EMA and momentum sharded over ``model``). One
+             card: gloo at (data 1, model 2), both processes on the card;
+             more cards: NCCL at (1, 2), and with four NCCL at (2, 2)
+             against NCCL at (2, 1). After every step each process's
+             gathered parameters, EMA, momentum and BN statistics and its
+             losses bit-equal to one process alone (for (2, 2): to the
+             (2, 1) run); the gathered ``last.ckpt`` bit-equal to one
+             process's and detecting through ``build_detector``. Seconds a
+             step, collectives a step by group, peak memory and owned
+             state bytes a process (beside the unsharded figure), the
+             phase's seconds; no EDT kernel launches.
 
 Then the kernel summary line (the slice-mask times, and each kernel's
 launches by phase), the card's name and power limit again, and last
@@ -1439,7 +1457,9 @@ def train_3ch(torch, tmp: str, smi: str) -> tuple:
         "model_scale": TRAIN["scale"], "channels": 3})
     clone = lambda m: {k: v.detach().clone() for k, v in
                        m.state_dict().items()}
-    before, ema_before = clone(state.model), clone(state.ema)
+    ema_of = lambda s: {n: t.detach().clone() for (n, _), t in zip(
+        s.model.named_parameters(), s.ema_tensors())}
+    before, ema_before = clone(state.model), ema_of(state)
     fit_warm_start = validate_tiles(state.eval_model(), val_ds, cfg)
     fits = []
 
@@ -1465,7 +1485,7 @@ def train_3ch(torch, tmp: str, smi: str) -> tuple:
                         {k: after[k] for k in stats})
     ema_keys = {k for k in params}
     moved_ema = moved({k: ema_before[k] for k in ema_keys},
-                      {k: v for k, v in clone(state.ema).items()
+                      {k: v for k, v in ema_of(state).items()
                        if k in ema_keys})
     if moved_params[0] < 0.9 * moved_params[1] or moved_stats[0] != \
             moved_stats[1] or moved_ema[0] < 0.9 * moved_ema[1]:
@@ -2003,7 +2023,7 @@ def float32_state(torch, state) -> dict:
                   if p.grad is not None],
         "momentum": [state.opt.state[p]["momentum_buffer"].dtype
                      for p in model.parameters() if p in state.opt.state],
-        "ema": [p.dtype for p in state.ema.parameters()],
+        "ema": [p.dtype for p in state.ema_tensors()],
         "statistics": [b.dtype for n, b in model.named_buffers()
                        if n.endswith(("running_mean", "running_var"))]}
     n = len(found["params"])
@@ -2137,6 +2157,10 @@ DIST_TOL = {"float64": {"loss": 1e-4, "params": 1e-4, "ema_params": 1e-4,
                         "batch_stats": 1e-4},
             "float32": {"loss": 1e-4, "params": 1e-3, "ema_params": 1e-3,
                         "batch_stats": 1e-4},
+            # bf16, the default, runs at NCCL world 1 alone: one process of
+            # a group computes what one process alone does, bit for bit
+            "bfloat16": {"loss": 0.0, "params": 0.0, "ema_params": 0.0,
+                         "batch_stats": 0.0},
             "fitness": 1e-6}
 DIST_TIMEOUT_S = 600
 # the card's machine has no cv2: the CLI run of the dist phase imports this
@@ -2182,8 +2206,10 @@ def dist_inputs(tmp: str) -> str:
 def dist_train(torch, inputs: dict, run_dir: str, dtype: str) -> dict:
     """``fit`` for ``DIST_STEPS`` steps of the ``TRAIN`` model on this
     process's rows of each global batch with mosaic, warm-started (the run
-    directory ``run_dir/rank{r}``), in ``dtype``; in float32 with the
-    sharded validation of the warm start and of the epoch."""
+    directory ``run_dir/rank{r}``), in ``dtype`` (float64 a control in a
+    float64 model, float32, or bf16, the default compute dtype); in
+    float32 with the sharded validation of the warm start and of the
+    epoch."""
     from oriented_object_detection_tpu_torch.config import TrainConfig
     from oriented_object_detection_tpu_torch.data.loader import TileDataset
     from oriented_object_detection_tpu_torch.eval.val import validate_tiles
@@ -2195,7 +2221,7 @@ def dist_train(torch, inputs: dict, run_dir: str, dtype: str) -> dict:
     ts, bs = train["tile_size"], train["batch"]
     cfg = TrainConfig(tile_size=ts, overlap=train["overlap"], batch_size=bs,
                       model_scale=train["scale"], channels=3, epochs=1,
-                      plots=False, **F32)
+                      plots=False, **({} if dtype == "bfloat16" else F32))
     train_ds = TileDataset(inputs["list"], ts, 3,
                            reader=inputs["pixels"].__getitem__)
     val_ds = TileDataset(inputs["vlist"], ts, 3,
@@ -2206,12 +2232,12 @@ def dist_train(torch, inputs: dict, run_dir: str, dtype: str) -> dict:
     out, fits, val_fn = {}, [], None
     if dtype == "float64":
         state.model.double()
-        state.ema.double()
+        state.ema_shards = [e.double() for e in state.ema_shards]
         # ``train_step`` casts the images to the config's float32; the
         # control's model takes them back to float64
         forward = state.model.forward
         state.model.forward = lambda x: forward(x.double())
-    else:
+    elif dtype == "float32":
         out["fitness_warm_start"] = validate_tiles(
             state.eval_model(), val_ds, cfg, shard_across_processes=True)
 
@@ -2226,7 +2252,8 @@ def dist_train(torch, inputs: dict, run_dir: str, dtype: str) -> dict:
     def batches(epoch):
         for b in itertools.islice(train_ds.batches(bs, rng, rows=rows),
                                   DIST_STEPS):
-            yield {**b, "images": b["images"].to(getattr(torch, dtype))}
+            yield {**b, "images": b["images"].to(getattr(
+                torch, "float32" if dtype == "bfloat16" else dtype))}
 
     torch.cuda.reset_peak_memory_stats()
     with step_recorder(torch, TR) as steps:
@@ -2247,7 +2274,7 @@ def dist_run(torch, E, inputs: dict, run_dir: str,
     versions), ``dist_train`` and ``detect_images`` of the 4ch slice (K1/K2
     on this process's tiles, held to their plain versions) and of
     ``detect_dual`` over the ``DIST_SEEDS`` maps. In float64:
-    ``dist_train`` alone."""
+    ``dist_train`` alone. In bf16: ``dist_train`` and ``detect_dual``."""
     from oriented_object_detection_tpu_torch.data import dataset as DS
     from oriented_object_detection_tpu_torch.infer.pipeline import (
         build_detector)
@@ -2258,6 +2285,11 @@ def dist_run(torch, E, inputs: dict, run_dir: str,
            else None, "device": torch.cuda.current_device()}
     if dtype == "float64":
         return {**out, **dist_train(torch, inputs, run_dir, dtype)}
+    if dtype == "bfloat16":
+        out.update(dist_train(torch, inputs, run_dir, dtype))
+        out["detect_dual"] = build_detector(inputs["dual"]).detect_images(
+            inputs["maps"])
+        return out
     bs = inputs["train"]["batch"]
     with PathKernels(E) as rec:
         reset_launches(E)
@@ -2285,9 +2317,10 @@ def dist_run(torch, E, inputs: dict, run_dir: str,
 
 
 def dist_worker(spec: dict) -> int:
-    """One process of a data-parallel run of the dist phase (``main`` with
-    ``--dist-worker``): joins the group, runs ``dist_run`` and pickles its
-    results."""
+    """One process of a data-parallel run of the dist phase, or of a mesh
+    of the model_axis phase (``main`` with ``--dist-worker``): joins the
+    group, runs ``dist_run`` (``axis_run`` where the spec names a mesh)
+    and pickles its results."""
     import pickle
 
     import torch
@@ -2303,7 +2336,10 @@ def dist_worker(spec: dict) -> int:
                   backend=spec["backend"])
     with open(spec["inputs"], "rb") as f:
         inputs = pickle.load(f)
-    out = dist_run(torch, E, inputs, spec["run_dir"], spec["dtype"])
+    if "mesh" in spec:
+        out = axis_run(torch, E, inputs, spec["run_dir"], spec["mesh"])
+    else:
+        out = dist_run(torch, E, inputs, spec["run_dir"], spec["dtype"])
     PD.shutdown()
     with open(spec["out"], "wb") as f:
         pickle.dump(out, f)
@@ -2544,7 +2580,9 @@ def phase_dist(torch, E) -> dict:
     global statistics, process 0's files); two cards or more run NCCL
     across them (at most 4). The multi-process training is run again in
     float64 against a float64 process, which takes float32's rounding out
-    of the comparison. Then the run's ``last.ckpt`` detects and ``cli.py
+    of the comparison, and NCCL at world 1 once more in bf16, the default
+    compute dtype, bit-equal to a bf16 process alone (training and
+    ``detect_dual``). Then the run's ``last.ckpt`` detects and ``cli.py
     detect --dist`` runs in processes of its own. Any failing process or
     check fails the phase."""
     import pickle
@@ -2563,7 +2601,7 @@ def phase_dist(torch, E) -> dict:
         with open(inputs, "rb") as f:
             data = pickle.load(f)
         refs = {}
-        for dtype in ("float32", "float64"):
+        for dtype in ("float32", "float64", "bfloat16"):
             ref_dir = os.path.join(tmp, f"run_one_{dtype}")
             refs[dtype] = (dist_run(torch, E, data, ref_dir, dtype), ref_dir)
             torch.cuda.empty_cache()
@@ -2577,7 +2615,7 @@ def phase_dist(torch, E) -> dict:
                       "build_launches": ref["build_launches"]}
                      if dtype == "float32" else {})})
         runs = [(b, w, "float32") for b, w in worlds] + [
-            (worlds[-1][0], worlds[-1][1], "float64")]
+            (worlds[-1][0], worlds[-1][1], "float64"), ("nccl", 1, "bfloat16")]
         for backend, world, dtype in runs:
             res, wall, run_dir = dist_group_run(tmp, inputs, backend, world,
                                                 dtype)
@@ -2591,6 +2629,17 @@ def phase_dist(torch, E) -> dict:
                 fails += bad
                 if world > 1:
                     multi = (res, run_dir, backend, world)
+            if dtype == "bfloat16":
+                same = [bool(np.array_equal(x, y))
+                        for a, b in zip(res[0]["detect_dual"],
+                                        ref["detect_dual"])
+                        for x, y in [(a["merged_for_pr"], b["merged_for_pr"])]
+                        + [(a["by_scale"][t], b["by_scale"][t])
+                           for t in b["by_scale"]]]
+                numbers["detect_dual_rows_bit_equal"] = [sum(same), len(same)]
+                if not all(same):
+                    fails.append(f"{label}: detect_dual rows differ from one "
+                                 f"process's")
             emit({"phase": "dist", "part": label, "wall_s": wall, **numbers})
         res, run_dir, backend, world = multi
         det = build_detector([(TRAIN["tile_size"], TRAIN["overlap"],
@@ -2611,6 +2660,240 @@ def phase_dist(torch, E) -> dict:
         raise AssertionError("dist phase: " + "; ".join(fails))
     return {"dist_detect_4ch": [r["detect_4ch_launches"] for r in res],
             "dist_train_4ch_build": [r["build_launches"] for r in res]}
+
+
+# ---------------------------------------------------------------------------
+# The model axis: (data, model) meshes
+# ---------------------------------------------------------------------------
+
+AXIS_STEPS = 3
+
+
+def gathered_state(state) -> list:
+    """The full parameters, EMA, momentum and BatchNorm statistics of a
+    state, gathered from its shards where it is sharded (collectives of
+    every process of the mesh) without refreshing its model, so the next
+    step makes its own gathers."""
+    return [*state.layout.gather(state.master), *state.ema_tensors(),
+            *state.momentum_tensors(), *state.model.buffers()]
+
+
+def axis_run(torch, E, inputs: dict, run_dir: str, mesh=None) -> dict:
+    """``AXIS_STEPS`` train steps of the ``TRAIN`` model at the default
+    compute dtype (bf16), warm-started, through the mosaic loader, laid
+    out over ``make_mesh(*mesh)`` by ``shard_train_state`` (``None``: one
+    process alone), on the rows of this process's data index. After each
+    step the checksums of the gathered state (``gathered_state``); the
+    seconds and collectives of each step by group, the peak memory, the
+    owned state bytes and the EDT launches (none: 3 channels). Process 0
+    writes the gathered ``last.ckpt`` to ``run_dir``."""
+    from oriented_object_detection_tpu_torch.config import TrainConfig
+    from oriented_object_detection_tpu_torch.data.loader import TileDataset
+    from oriented_object_detection_tpu_torch.parallel import distributed as PD
+    from oriented_object_detection_tpu_torch.parallel import mesh as PM
+    from oriented_object_detection_tpu_torch.train import trainer as TR
+
+    train = inputs["train"]
+    ts, bs = train["tile_size"], train["batch"]
+    cfg = TrainConfig(tile_size=ts, overlap=train["overlap"], batch_size=bs,
+                      model_scale=train["scale"], channels=3, epochs=1,
+                      plots=False)
+    ds = TileDataset(inputs["list"], ts, 3,
+                     reader=inputs["pixels"].__getitem__)
+    state = TR.create_train_state(cfg, len(ds) // bs)
+    TR.warm_start_state(train["ckpt"], state, expect={
+        "model_scale": train["scale"], "channels": 3})
+    out = {"rank": PD.rank(), "device": torch.cuda.current_device(),
+           "backend": torch.distributed.get_backend() if PD.active()
+           else None, "compute_dtype": cfg.compute_dtype}
+    index = (0, 1)
+    if mesh is not None:
+        m = PM.make_mesh(*mesh)
+        state = PM.shard_train_state(state, m)
+        index = (m.data_index, m.n_data)
+        out["mesh"] = [m.n_data, m.n_model, m.data_index, m.model_index]
+    rows = PM.batch_rows(bs, *index)
+    rng = np.random.RandomState(cfg.seed)
+    steps = []
+    reset_launches(E)
+    torch.cuda.reset_peak_memory_stats()
+    for b in itertools.islice(ds.batches(bs, rng, rows=rows), AXIS_STEPS):
+        torch.cuda.synchronize()
+        before = PD.collective_counts("group")
+        t0 = time.perf_counter()
+        metrics = TR.train_step(state, b, cfg)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        steps.append({
+            "seconds": seconds, "metrics": metrics.tolist(),
+            "collectives": dict(PD.collective_counts("group") - before),
+            "checksums": PD.tensor_checksums(gathered_state(state)
+                                             ).cpu().numpy()})
+    out.update(steps=steps, rows=list(rows), launches=dict(E.LAUNCHES),
+               peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               state_bytes=TR.owned_state_bytes(state))
+    payload = TR.checkpoint_payload(state)
+    if PD.is_main():
+        TR.write_checkpoint(os.path.join(run_dir, "last.ckpt"), payload, {
+            "model_scale": cfg.model_scale, "channels": 3, "tile_size": ts})
+    return out
+
+
+def axis_group_run(torch, tmp: str, inputs: str, backend: str,
+                   mesh: tuple) -> tuple:
+    """The processes of one ``mesh`` (``n_data * n_model`` of them) joined
+    by ``backend``: (results per rank, wall seconds, run directory)."""
+    import pickle
+
+    label = f"{backend}_{mesh[0]}x{mesh[1]}"
+    run_dir = os.path.join(tmp, f"run_{label}")
+    world = mesh[0] * mesh[1]
+    coord = f"localhost:{free_port()}"
+    specs = [{"coordinator": coord, "world": world, "rank": r,
+              "backend": backend, "inputs": inputs, "run_dir": run_dir,
+              "mesh": list(mesh), "out": os.path.join(tmp, f"{label}_{r}.pkl")}
+             for r in range(world)]
+    wall = run_processes(
+        [[sys.executable, os.path.abspath(__file__), "--dist-worker",
+          json.dumps(s)] for s in specs],
+        [os.path.join(tmp, f"{label}_{r}.log") for r in range(world)])
+    res = []
+    for s in specs:
+        with open(s["out"], "rb") as f:
+            res.append(pickle.load(f))
+    return res, wall, run_dir
+
+
+def compare_axis(label: str, res: list, ref: dict | None = None) -> tuple:
+    """The processes of a mesh run held against a reference run (one
+    process alone, or the data-only mesh), or, without one, against their
+    own process 0: the metrics and the checksums of the gathered state
+    after every step bit-equal. The numbers carry the result as
+    ``bit_equal_to_reference`` or ``processes_bit_equal``, and neither
+    where nothing was compared (one process, no reference). (numbers,
+    failures)."""
+    fails = []
+    others, key = (res, "bit_equal_to_reference") if ref is not None \
+        else (res[1:], "processes_bit_equal")
+    ref = res[0] if ref is None else ref
+    for r in others:
+        if len(r["steps"]) != len(ref["steps"]):
+            fails.append(f"{label}: process {r['rank']} took "
+                         f"{len(r['steps'])} steps")
+            continue
+        for k, (a, b) in enumerate(zip(r["steps"], ref["steps"])):
+            same = np.array_equal(a["checksums"], b["checksums"])
+            if a["metrics"] != b["metrics"] or not same:
+                fails.append(f"{label}: process {r['rank']} step {k}: "
+                             f"metrics {a['metrics']} against "
+                             f"{b['metrics']}, state bit-equal {same}")
+    compared = {key: not fails} if others else {}
+    for r in res:
+        if any(r["launches"].values()):
+            fails.append(f"{label}: EDT kernels launched {r['launches']}")
+    by_rank = [[s["seconds"] for s in r["steps"]] for r in res]
+    return {"processes": len(res), "backend": res[0]["backend"],
+            "mesh": [r.get("mesh") for r in res],
+            "devices": [r["device"] for r in res],
+            "rows_per_process": [r["rows"] for r in res],
+            "compute_dtype": res[0]["compute_dtype"],
+            "seconds_per_step": statistics.median(by_rank[0][1:]),
+            "seconds_per_step_by_rank": by_rank,
+            "collectives_per_step": [s["collectives"]
+                                     for s in res[0]["steps"]],
+            "peak_memory_gib_by_rank": [r["peak_memory_gib"] for r in res],
+            "state_bytes_by_rank": [r["state_bytes"] for r in res],
+            "owned_over_unsharded": [r["state_bytes"]["owned"]
+                                     / r["state_bytes"]["unsharded"]
+                                     for r in res],
+            "losses": [s["metrics"] for s in res[0]["steps"]],
+            **compared}, fails
+
+
+def phase_model_axis(torch, E) -> dict:
+    """The model axis at full width: YOLO11x-OBB, 3 channels, tile 416,
+    global batch 16, bf16 (the default), warm-started from
+    ``train416_x.ckpt``, ``AXIS_STEPS`` steps through the mosaic loader on
+    the dist phase's tiles, laid out by ``make_mesh(n_data, 2)`` and
+    ``shard_train_state``, each process's gathered state after every step
+    held bit-equal to one process alone on the same card (cuDNN's
+    deterministic algorithms). One card: gloo at (data 1, model 2), both
+    processes on the card (NCCL puts no two processes on one); two cards
+    or more: NCCL at (1, 2); four or more: NCCL at (2, 1), its two
+    processes bit-equal to each other, and at (2, 2), bit-equal to (2,
+    1)'s process 0, the data-only run of the same two row shares. Then
+    the gathered ``last.ckpt``, bit-equal to one process's, detects
+    through ``build_detector``. Any failing process or check fails the
+    phase."""
+    import pickle
+
+    from oriented_object_detection_tpu_torch.infer.pipeline import (
+        build_detector)
+    from oriented_object_detection_tpu_torch.models.weights import (
+        load_checkpoint)
+
+    t0 = time.perf_counter()
+    torch.backends.cudnn.deterministic = True
+    cards = torch.cuda.device_count()
+    fails, launches = [], {}
+    with tempfile.TemporaryDirectory() as tmp:
+        inputs = dist_inputs(tmp)
+        with open(inputs, "rb") as f:
+            data = pickle.load(f)
+        ref_dir = os.path.join(tmp, "run_one")
+        ref = axis_run(torch, E, data, ref_dir)
+        launches["one_process"] = ref["launches"]
+        torch.cuda.empty_cache()
+        one, bad = compare_axis("one_process", [ref])
+        fails += bad
+        emit({"phase": "model_axis", "part": "one_process", **one})
+        runs = [("gloo" if cards == 1 else "nccl", (1, 2), ref)]
+        if cards >= 4:
+            runs += [("nccl", (2, 1), None), ("nccl", (2, 2), "2x1")]
+        done = {}
+        for backend, mesh, against in runs:
+            res, wall, run_dir = axis_group_run(torch, tmp, inputs, backend,
+                                                mesh)
+            label = f"{backend}_{mesh[0]}x{mesh[1]}"
+            done[f"{mesh[0]}x{mesh[1]}"] = res
+            launches[label] = [r["launches"] for r in res]
+            if isinstance(against, str):  # the data-only run's process 0
+                against = done[against][0]
+            numbers, bad = compare_axis(label, res, against)
+            fails += bad
+            if mesh[1] > 1 and not all(0.5 <= x <= 0.52 for x in
+                                       numbers["owned_over_unsharded"]):
+                fails.append(f"{label}: owned state "
+                             f"{numbers['owned_over_unsharded']}")
+            emit({"phase": "model_axis", "part": label, "wall_s": wall,
+                  **numbers})
+        run_dir = os.path.join(tmp, f"run_{runs[0][0]}_1x2")
+        got = load_checkpoint(os.path.join(run_dir, "last.ckpt"))
+        want = load_checkpoint(os.path.join(ref_dir, "last.ckpt"))
+        for key in ("params", "ema_params", "opt_state", "batch_stats"):
+            a, b = dict(tree_leaves(got[key])), dict(tree_leaves(want[key]))
+            differ = [k for k in b if k not in a or not np.array_equal(
+                a[k], b[k])]
+            if differ or len(a) != len(b):
+                fails.append(f"model_axis last.ckpt {key}: {len(differ)} "
+                             f"leaves differ")
+        if got["step"] != want["step"]:
+            fails.append(f"model_axis last.ckpt step {got['step']}")
+        img = data["maps"][0]
+        det = build_detector([(TRAIN["tile_size"], TRAIN["overlap"],
+                               os.path.join(run_dir, "last.ckpt"))])
+        rows = det.detect_image(img)["merged_for_pr"]
+        check_rows(rows, *img.shape[:2], det.cfg.conf_thr_predict)
+        del det
+        emit({"phase": "model_axis", "part": "last_ckpt",
+              "bit_equal_to_one_process": not any(
+                  f.startswith("model_axis last.ckpt") for f in fails),
+              "detect_rows": len(rows),
+              "phase_seconds": time.perf_counter() - t0})
+    torch.backends.cudnn.deterministic = False
+    if fails:
+        raise AssertionError("model_axis phase: " + "; ".join(fails))
+    return launches
 
 
 def main(argv=None) -> int:
@@ -2686,6 +2969,7 @@ def main(argv=None) -> int:
                       args.profile)
     train = phase_train(torch, E, smi)
     dist = phase_dist(torch, E)
+    axis = phase_model_axis(torch, E)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -2694,7 +2978,8 @@ def main(argv=None) -> int:
     # batch and stream, the crop, the random x-scale path, the bf16 4ch
     # slice (per map and batched) and the training path's 4-channel build
     # run both; under --dist, by process, the 4ch detection on every
-    # process and the 4ch build on process 0 alone
+    # process and the 4ch build on process 0 alone; the model axis's
+    # 3-channel training, by process of each run, none
     emit({"kernels": [
         {"name": name, "route": "cuda",
          "source": "oriented_object_detection_tpu_torch/csrc/edt.cu",
@@ -2707,7 +2992,11 @@ def main(argv=None) -> int:
                               "bf16_4ch_batch": bf16["batch"][name],
                               "train_4ch_build": train["launches"][name],
                               **{path: [r[name] for r in by_rank]
-                                 for path, by_rank in dist.items()}},
+                                 for path, by_rank in dist.items()},
+                              **{f"model_axis_{run}": [r[name] for r in (
+                                  by_rank if isinstance(by_rank, list)
+                                  else [by_rank])]
+                                 for run, by_rank in axis.items()}},
          **{k: kern["slice"][name][k] for k in keys},
          "shape": ["slice", *smask.shape], "timing": "device_only"}
         for name in KERNELS]})

@@ -24,7 +24,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..parallel import distributed as PD
+from ..parallel import mesh as PM
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.97  # flax's: running = 0.97 * running + 0.03 * batch
@@ -43,9 +43,11 @@ class BatchNorm(nn.BatchNorm2d):
     *biased* batch variance; ``nn.BatchNorm2d`` would use the unbiased one,
     n/(n-1) times larger (twice as large on a 1x1 map at batch 2).
     ``num_batches_tracked`` is not used. Eval mode is ``nn.BatchNorm2d``'s:
-    the running statistics. Inside a data-parallel group of more than one
-    process the statistics are the global batch's (``global_moments``), so
-    every process moves its running statistics alike."""
+    the running statistics. When the global batch is split over more than
+    one process (the world, or the data group of the active mesh:
+    ``parallel/mesh.py``) the statistics are the global batch's
+    (``global_moments``), so every process moves its running statistics
+    alike."""
 
     def __init__(self, c: int):
         super().__init__(c, eps=BN_EPS, momentum=1.0 - BN_MOMENTUM)
@@ -56,7 +58,7 @@ class BatchNorm(nn.BatchNorm2d):
         xf = at_least_float32(x)
         if not self.training:
             return super().forward(xf).to(x.dtype)
-        if PD.world() > 1:
+        if PM.data_size() > 1:
             mean, var = global_moments(xf)
         else:
             mean = xf.mean(dim=(0, 2, 3))
@@ -73,14 +75,15 @@ class BatchNorm(nn.BatchNorm2d):
 
 
 def global_moments(x: torch.Tensor) -> tuple:
-    """Flax's fast batch moments over every process's rows (the JAX
-    package's BatchNorm under its data mesh): one all-reduce of the packed
-    ``[sum x, sum x^2, count]`` a layer, through which the gradient flows
-    (its backward is one more). Returns (mean, E[x^2] - mean^2 clipped at
-    0), in float32 or wider whatever the dtype of ``x``."""
+    """Flax's fast batch moments over the rows of every process of the data
+    axis (the JAX package's BatchNorm under its data mesh): one all-reduce
+    of the packed ``[sum x, sum x^2, count]`` a layer, through which the
+    gradient flows (its backward is one more). Returns (mean, E[x^2] -
+    mean^2 clipped at 0), in float32 or wider whatever the dtype of
+    ``x``."""
     x = at_least_float32(x)
     c = x.shape[1]
-    packed = PD.all_reduce_sum(torch.cat([
+    packed = PM.data_sum(torch.cat([
         x.sum(dim=(0, 2, 3)), (x * x).sum(dim=(0, 2, 3)),
         x.new_full((1,), x.numel() // c)]))
     mean = packed[:c] / packed[2 * c]

@@ -19,6 +19,23 @@ import numpy as np
 import torch
 
 
+# flax conv kernels are HWIO, the port's OIHW: axis i of a port kernel is
+# axis KERNEL_AXES[i] of the flax kernel
+KERNEL_AXES = (3, 2, 0, 1)
+_FLAX_KERNEL_AXES = tuple(int(a) for a in np.argsort(KERNEL_AXES))
+
+
+def torch_axis(name: str, ndim: int, flax_axis: int) -> int:
+    """The axis of the port's tensor ``name`` (``ndim`` dimensions) that
+    holds axis ``flax_axis`` (negative counts from the end) of its flax
+    leaf: a conv kernel (a 4-D ``weight``) goes through ``KERNEL_AXES``,
+    every other leaf keeps its axes."""
+    axis = flax_axis % ndim
+    if name.endswith("weight") and ndim == len(KERNEL_AXES):
+        return KERNEL_AXES.index(axis)
+    return axis
+
+
 def _map_tree(fn, tree, path: str = ""):
     """Apply ``fn(path, leaf)`` to every leaf of a nested dict; ``path`` is
     the leaf's key string as jax's ``keystr`` writes it
@@ -135,7 +152,7 @@ def torch_state_from_jax(variables: dict) -> dict:
                 raise KeyError(f"no torch key for flax path "
                                f"{'/'.join(path + [k])}")
             val = np.asarray(v, np.float32)
-            out[key] = val.transpose(3, 2, 0, 1) if k == "kernel" else val
+            out[key] = val.transpose(KERNEL_AXES) if k == "kernel" else val
 
     walk(dict(variables["params"]), [])
     walk(dict(variables.get("batch_stats", {})), [])
@@ -198,9 +215,10 @@ def jax_trees_from_torch_state(state: dict) -> dict:
                            f"which maps back to {_flax_path_to_torch(path)}")
         a = val.detach().cpu().numpy() if isinstance(val, torch.Tensor) \
             else np.asarray(val)
-        a = np.ascontiguousarray(a.astype(np.float32).transpose(2, 3, 1, 0)
-                                 if path[-1] == "kernel" else
-                                 a.astype(np.float32))
+        a = a.astype(np.float32)
+        if path[-1] == "kernel":
+            a = a.transpose(_FLAX_KERNEL_AXES)
+        a = np.ascontiguousarray(a)
         node = trees[coll]
         for p in path[:-1]:
             node = node.setdefault(p, {})

@@ -16,13 +16,21 @@ make the result the global batch's are explicit:
 * validation and detection rows are gathered to every process
   (``all_gather_rows``), so every process returns the same results.
 
+The reductions run over the whole world unless the caller names a
+``group``: under a (data, model) mesh (``parallel/mesh.py``) the global
+batch's sums go over the data group, and the parameters are rebuilt from
+the model group's shards (``all_gather_shards``).
+
 Without an initialized group every helper here is the identity and makes
 no call into ``torch.distributed``. ``COLLECTIVES`` counts the collective
-calls made through this module.
+calls made through this module by kind and by the group they ran over
+(``"world"``, or the label given to ``new_group``); ``collective_counts``
+sums it by either.
 """
 
 from __future__ import annotations
 
+import collections
 import datetime
 import os
 
@@ -31,7 +39,9 @@ import torch.distributed as dist
 
 from ..utils.runtime import resolve_device
 
-COLLECTIVES = {"all_reduce": 0, "all_gather": 0, "barrier": 0}
+# collective calls by (kind, group label)
+COLLECTIVES: collections.Counter = collections.Counter()
+_GROUP_LABELS: dict = {}
 # elements of one flat gradient bucket (64 MiB of float32)
 GRAD_BUCKET_NUMEL = 1 << 24
 TIMEOUT = datetime.timedelta(minutes=10)
@@ -102,9 +112,34 @@ def is_main() -> bool:
     return rank() == 0
 
 
+def _count(kind: str, group) -> None:
+    label = "world" if group is None else _GROUP_LABELS.get(group, "other")
+    COLLECTIVES[kind, label] += 1
+
+
+def collective_counts(by: str = "kind") -> collections.Counter:
+    """``COLLECTIVES`` summed by ``"kind"`` (all_reduce, all_gather,
+    barrier) or by ``"group"``."""
+    pos = ("kind", "group").index(by)
+    out = collections.Counter()
+    for key, n in COLLECTIVES.items():
+        out[key[pos]] += n
+    return out
+
+
+def new_group(ranks: list, label: str):
+    """``torch.distributed.new_group`` of ``ranks``, which every process
+    must call for every group, in the same order, members or not; the
+    group's collectives are counted under ``label``."""
+    group = dist.new_group(ranks, timeout=TIMEOUT)
+    if rank() in ranks:
+        _GROUP_LABELS[group] = label
+    return group
+
+
 def barrier() -> None:
     if dist.is_initialized():
-        COLLECTIVES["barrier"] += 1
+        _count("barrier", None)
         dist.barrier()
 
 
@@ -121,12 +156,13 @@ def _on_backend(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def all_reduce_sum_(x: torch.Tensor) -> torch.Tensor:
-    """In-place sum of ``x`` over the processes (no autograd)."""
+def all_reduce_sum_(x: torch.Tensor, group=None) -> torch.Tensor:
+    """In-place sum of ``x`` over the processes of ``group`` (the world by
+    default; no autograd)."""
     if dist.is_initialized():
-        COLLECTIVES["all_reduce"] += 1
+        _count("all_reduce", group)
         y = _on_backend(x)
-        dist.all_reduce(y)
+        dist.all_reduce(y, group=group)
         if y is not x:
             x.copy_(y)
     return x
@@ -139,66 +175,91 @@ class _AllReduceSum(torch.autograd.Function):
     process's input is the sum of the processes' gradients."""
 
     @staticmethod
-    def forward(ctx, x):
-        return all_reduce_sum_(x.clone())
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce_sum_(x.clone(), group)
 
     @staticmethod
     def backward(ctx, g):
-        return all_reduce_sum_(g.clone())
+        return all_reduce_sum_(g.clone(), ctx.group), None
 
 
-def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """Differentiable sum of ``x`` over the processes; ``x`` itself without
-    a group."""
-    return _AllReduceSum.apply(x) if dist.is_initialized() else x
+def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Differentiable sum of ``x`` over the processes of ``group`` (the
+    world by default); ``x`` itself without a process group."""
+    return _AllReduceSum.apply(x, group) if dist.is_initialized() else x
 
 
-def all_reduce_grads(params) -> None:
-    """Sum every parameter's gradient over the processes in flat buckets of
-    about ``GRAD_BUCKET_NUMEL`` elements (a missing gradient counts as
-    zeros, so every process sends the same layout)."""
+def buckets(tensors: list) -> list:
+    """``tensors`` split in order into runs of about ``GRAD_BUCKET_NUMEL``
+    elements."""
+    out, cur, n = [], [], 0
+    for t in tensors:
+        cur.append(t)
+        n += t.numel()
+        if n >= GRAD_BUCKET_NUMEL:
+            out.append(cur)
+            cur, n = [], 0
+    if cur:
+        out.append(cur)
+    return out
+
+
+def all_reduce_grads(params, group=None) -> None:
+    """Sum every parameter's gradient over the processes of ``group`` (the
+    world by default) in flat buckets of about ``GRAD_BUCKET_NUMEL``
+    elements (a missing gradient counts as zeros, so every process sends
+    the same layout)."""
     params = [p for p in params if p.requires_grad]
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
-    buckets, cur, n = [], [], 0
-    for p in params:
-        cur.append(p.grad)
-        n += p.numel()
-        if n >= GRAD_BUCKET_NUMEL:
-            buckets.append(cur)
-            cur, n = [], 0
-    if cur:
-        buckets.append(cur)
-    for grads in buckets:
-        flat = all_reduce_sum_(torch.cat([g.reshape(-1) for g in grads]))
+    for grads in buckets([p.grad for p in params]):
+        flat = all_reduce_sum_(torch.cat([g.reshape(-1) for g in grads]),
+                               group)
         for g, v in zip(grads, flat.split([g.numel() for g in grads])):
             g.copy_(v.view_as(g))
 
 
-def all_gather_rows(x: torch.Tensor, counts: list | None = None
-                    ) -> torch.Tensor:
+def all_gather_shards(shard: torch.Tensor, dim: int, group
+                      ) -> torch.Tensor:
+    """The full tensor whose pieces along ``dim`` the processes of
+    ``group`` hold, in their order in the group (a list ``all_gather``,
+    which gloo and NCCL both have); ``shard`` itself without a process
+    group."""
+    if not dist.is_initialized():
+        return shard
+    y = _on_backend(shard.contiguous())
+    parts = [torch.empty_like(y) for _ in range(dist.get_world_size(group))]
+    _count("all_gather", group)
+    dist.all_gather(parts, y, group=group)
+    return torch.cat(parts, dim).to(shard.device)
+
+
+def all_gather_rows(x: torch.Tensor, counts: list | None = None,
+                    group=None) -> torch.Tensor:
     """Every process's rows of ``x`` (first dimension, the rest of the shape
-    the same everywhere) concatenated in process order; each process's rows
-    are padded to the largest count for the gather and cut back. ``counts``,
-    every process's row count where each process knows them, saves the
-    gather of the counts (and its wait for the device)."""
+    the same everywhere) concatenated in process order over ``group`` (the
+    world by default); each process's rows are padded to the largest count
+    for the gather and cut back. ``counts``, every process's row count
+    where each process knows them, saves the gather of the counts (and its
+    wait for the device)."""
     if not dist.is_initialized():
         return x
-    n = world()
+    n = dist.get_world_size(group)
     y = _on_backend(x)
     if counts is None:
         count = torch.tensor([len(y)], dtype=torch.int64, device=y.device)
         every = [torch.empty_like(count) for _ in range(n)]
-        COLLECTIVES["all_gather"] += 1
-        dist.all_gather(every, count)
+        _count("all_gather", group)
+        dist.all_gather(every, count, group=group)
         counts = [int(c) for c in every]
     top = max(max(counts), 1)   # gloo refuses an empty tensor
     pad = y.new_zeros((top,) + tuple(y.shape[1:]))
     pad[:len(y)] = y
     parts = [torch.empty_like(pad) for _ in range(n)]
-    COLLECTIVES["all_gather"] += 1
-    dist.all_gather(parts, pad)
+    _count("all_gather", group)
+    dist.all_gather(parts, pad, group=group)
     return torch.cat([p[:c] for p, c in zip(parts, counts)]).to(x.device)
 
 

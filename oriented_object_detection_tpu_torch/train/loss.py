@@ -20,7 +20,7 @@ import torch.nn.functional as F
 
 from ..models import decode as D
 from ..ops import geometry as G
-from ..parallel import distributed as PD
+from ..parallel import mesh as PM
 from . import assigner
 
 
@@ -61,11 +61,12 @@ def obb_loss(raw: dict, gt_labels: torch.Tensor, gt_xywhr: torch.Tensor,
              gt_mask: torch.Tensor, cfg: LossConfig = LossConfig()):
     """raw: the model's head outputs; gt_labels [B, M] int, gt_xywhr
     [B, M, 5] in input pixels, gt_mask [B, M] bool. Returns (total, dict of
-    the box, cls and dfl components and the fg count). In a data-parallel
-    group the batch is this process's rows of the global batch, the
-    normaliser is the global target score sum and the batch factor the
-    global batch size: the returned values are this process's shares of
-    the global ones, which sum to them over the processes."""
+    the box, cls and dfl components and the fg count). When the global
+    batch is split over processes (the world, or the data group of the
+    active mesh) the batch is this process's rows of it, the normaliser is
+    the global target score sum and the batch factor the global batch
+    size: the returned values are this process's shares of the global
+    ones, which sum to them over the data axis."""
     box_logits = D.flatten_levels(raw["box"]).float()     # [B, A, 4*reg_max]
     cls_logits = D.flatten_levels(raw["cls"]).float()     # [B, A, nc]
     ang_raw = D.flatten_levels(raw["ang"])[..., 0]        # [B, A]
@@ -87,10 +88,10 @@ def obb_loss(raw: dict, gt_labels: torch.Tensor, gt_xywhr: torch.Tensor,
         alpha=cfg.tal_alpha, beta=cfg.tal_beta, nc=cfg.nc)
     fg = tgt["fg"]                                          # [B, A]
     t_scores = tgt["scores"]                                # [B, A, nc]
-    # the global batch's target score sum and size under a data-parallel
-    # group; the targets carry no gradient, so the sum is a constant
-    score_sum = PD.all_reduce_sum_(t_scores.sum())
-    B_global = B * PD.world()
+    # the global batch's target score sum and size over the data axis; the
+    # targets carry no gradient, so the sum is a constant
+    score_sum = PM.data_sum_(t_scores.sum())
+    B_global = B * PM.data_size()
     score_sum = torch.clamp_min(score_sum, 1.0)
 
     loss_cls = sigmoid_bce(cls_logits, t_scores).sum() / score_sum

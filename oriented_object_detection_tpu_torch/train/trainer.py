@@ -11,6 +11,13 @@ warmup), whose lr and momentum are set before each step from the schedule,
 computed in float32 as the JAX train step computes it. Its update is the
 JAX package's ``sgd_apply``: g += wd * p; m = g + mu * m; p -= lr * (g +
 mu * m).
+
+A state laid out over a (data, model) mesh (``parallel/mesh.py::
+shard_train_state``) keeps float32 shards of the parameters, the momentum
+and the EMA on each process: the optimizer steps the shards, and the
+model's parameters are rebuilt from the model group's shards before each
+forward; checkpoints are gathered to the full trees, bit-equal to an
+unsharded state's.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ from ..models.weights import (jax_trees_from_torch_state, load_checkpoint,
                               load_state, torch_state_from_jax)
 from ..models.yolo11_obb import STRIDES, YOLO11OBB
 from ..parallel import distributed as PD
+from ..parallel import mesh as PM
 from ..utils.runtime import resolve_device
 from .loss import LossConfig, obb_loss
 
@@ -105,35 +113,100 @@ def ema_update(ema: list, params: list, step: int, decay: float,
 
 
 class TrainState:
-    """The model in training mode, its EMA copy (parameters only; the
-    BatchNorm statistics are the model's), the optimizer, the step and the
-    schedule vector."""
+    """The model in training mode, the EMA of its parameters, the
+    optimizer, the step and the schedule vector, laid out over the model
+    axis of a mesh (``layout``, set by ``PM.shard_train_state``).
+
+    The process owns float32 parts of three trees, of each leaf its shard
+    or, where ``shard_spec`` replicates it, the whole leaf: the master
+    parameters (``master``; a whole leaf's master is the model's parameter
+    itself), the EMA (``ema_shards``) and the SGD momentum (the state of
+    ``opt``, an optimizer over the master). The model's parameters are
+    rebuilt from the model group's master shards before a forward
+    (``sync``). The BatchNorm statistics (the model's buffers), step and
+    schedule are replicated. A new state has the 1 x 1 layout: every leaf
+    whole, the master the model's parameters, no gather a collective.
+    Sharded, every process of the mesh makes the same calls, since each
+    gather is a collective."""
 
     def __init__(self, model: YOLO11OBB, opt: torch.optim.SGD,
                  sched: np.ndarray, step: int = 0):
         self.model = model
-        self.ema = copy.deepcopy(model).requires_grad_(False).eval()
-        self.opt = opt
+        self.opt = opt            # over the model's parameters
         self.sched = sched
         self.step = step
+        self.mesh = None          # the data axis's mesh; None: the world
+        named = list(model.named_parameters())
+        self.layout = PM.Layout([n for n, _ in named],
+                                [p.shape for _, p in named], PM.Mesh())
+        self.master = [p for _, p in named]
+        self.ema_shards = [p.detach().clone() for p in self.master]
+        self._stale = False       # the model's parameters lag the master
 
     @property
     def device(self) -> torch.device:
         return next(self.model.parameters()).device
 
-    def reset_ema(self) -> None:
+    def sync(self) -> None:
+        """Refresh the model's parameters from the model group's master
+        shards where a step moved them."""
+        if self._stale:
+            with torch.no_grad():
+                self.layout.gather(self.master, out=list(
+                    self.model.parameters()))
+            self._stale = False
+
+    def params_loaded(self) -> None:
+        """After the model's parameters were loaded whole: this process's
+        master shards from them."""
         with torch.no_grad():
-            for e, p in zip(self.ema.parameters(), self.model.parameters()):
-                e.copy_(p)
+            for i, (m, p) in enumerate(zip(self.master,
+                                           self.model.parameters())):
+                if m is not p:
+                    m.copy_(self.layout.shard_of(p, i))
+        self._stale = False
+
+    def ema_tensors(self) -> list:
+        """The EMA's full parameters, in the model's order."""
+        return self.layout.gather(self.ema_shards)
+
+    def momentum_tensors(self) -> list:
+        """The SGD momentum's full buffers, in the model's order; zeros
+        before the first step."""
+        return self.layout.gather([
+            self.opt.state.get(m, {}).get("momentum_buffer",
+                                          torch.zeros_like(m))
+            for m in self.master])
+
+    def set_ema(self, full: list) -> None:
+        """Set the EMA from its full parameters (in the model's order)."""
+        with torch.no_grad():
+            for i, (e, t) in enumerate(zip(self.ema_shards, full)):
+                e.copy_(self.layout.shard_of(t, i))
+
+    def set_momentum(self, full: list | None) -> None:
+        """Set the momentum buffers from their full values (in the model's
+        order), or drop them (``None``: they restart from zero)."""
+        self.opt.state.clear()
+        for i, (m, t) in enumerate(zip(self.master, full or [])):
+            self.opt.state[m]["momentum_buffer"] = self.layout.shard_of(
+                t, i).clone(memory_format=torch.contiguous_format)
+
+    def reset_ema(self) -> None:
+        """The EMA restarts from the parameters."""
+        with torch.no_grad():
+            for e, m in zip(self.ema_shards, self.master):
+                e.copy_(m)
 
     def eval_model(self) -> YOLO11OBB:
         """The model for inference (validation, like the engine's best.pt):
-        the EMA parameters with the model's BatchNorm statistics, in eval
-        mode."""
+        a copy of the model in eval mode with the EMA parameters and the
+        model's BatchNorm statistics. The copy is the caller's: the state
+        keeps no full EMA model, and ``owned_state_bytes`` counts none."""
+        ema = copy.deepcopy(self.model).requires_grad_(False)
         with torch.no_grad():
-            for e, b in zip(self.ema.buffers(), self.model.buffers()):
-                e.copy_(b)
-        return self.ema.eval()
+            self.layout.gather(self.ema_shards, out=list(ema.parameters()))
+        return ema.eval()
 
 
 def init_head_biases(model: YOLO11OBB, nc: int) -> None:
@@ -206,27 +279,40 @@ def train_step(state: TrainState, batch: dict, cfg: TrainConfig
     batch's, the gradients are summed over the processes (the gradient of
     the one global loss, as the JAX package's step on the global batch
     takes it), so every process makes the same update; the metrics are
-    summed too, the global batch's.
+    summed too, the global batch's. The processes are the world's, or
+    those of the data group of the state's mesh, whose model group holds
+    the same rows: there each process slices its shard out of the summed
+    gradient and steps its shards of the parameters, momentum and EMA.
 
     The forward and backward run in ``cfg.compute_dtype`` (the images are
     cast to it); the loss upcasts the head outputs, and the parameters,
     gradients, momentum, EMA and BatchNorm statistics are float32."""
     set_hypers(state.opt, schedule_hypers(state.sched, state.step))
+    state.sync()
     state.model.train()
-    out = state.model(batch["images"].to(torch_dtype(cfg.compute_dtype)))
-    total, parts = obb_loss(out, batch["gt_labels"], batch["gt_xywhr"],
-                            batch["gt_mask"], loss_config(cfg))
-    state.opt.zero_grad(set_to_none=True)
-    total.backward()
-    if PD.active():
-        PD.all_reduce_grads(state.model.parameters())
-    state.opt.step()
-    ema_update(list(state.ema.parameters()), list(state.model.parameters()),
-               state.step + 1, cfg.ema_decay, cfg.ema_tau)
-    state.step += 1
-    metrics = torch.stack([total.detach()] + [parts[k].detach().float()
-                                              for k in METRIC_KEYS[1:]])
-    return PD.all_reduce_sum_(metrics)
+    with PM.using(state.mesh):
+        out = state.model(batch["images"].to(torch_dtype(cfg.compute_dtype)))
+        total, parts = obb_loss(out, batch["gt_labels"], batch["gt_xywhr"],
+                                batch["gt_mask"], loss_config(cfg))
+        state.model.zero_grad(set_to_none=True)
+        total.backward()
+        params = list(state.model.parameters())
+        PM.data_sum_grads(params)
+        split = [(m, p, i) for i, (m, p) in enumerate(zip(state.master,
+                                                          params))
+                 if m is not p]
+        for m, p, i in split:
+            m.grad = state.layout.shard_of(p.grad, i)
+        state.opt.step()
+        for m, p, _ in split:     # the full gradients go, the shards' too
+            m.grad = p.grad = None
+        state._stale = True
+        ema_update(state.ema_shards, state.master, state.step + 1,
+                   cfg.ema_decay, cfg.ema_tau)
+        state.step += 1
+        metrics = torch.stack([total.detach()] + [parts[k].detach().float()
+                                                  for k in METRIC_KEYS[1:]])
+        return PM.data_sum_(metrics)
 
 
 # ---------------------------------------------------------------------------
@@ -236,13 +322,13 @@ def train_step(state: TrainState, batch: dict, cfg: TrainConfig
 def checkpoint_payload(state: TrainState) -> dict:
     """{'step', 'params', 'batch_stats', 'ema_params', 'opt_state', 'sched'}
     as flax-keyed numpy trees, the JAX package's checkpoint payload (with
-    the schedule vector besides)."""
+    the schedule vector besides). A sharded state's trees are gathered
+    (every process of the mesh calls this)."""
+    state.sync()
     trees = jax_trees_from_torch_state(state.model.state_dict())
-    named = dict(state.model.named_parameters())
-    ema = dict(zip(named, state.ema.parameters()))
-    mom = {n: state.opt.state.get(p, {}).get("momentum_buffer",
-                                              torch.zeros_like(p))
-           for n, p in named.items()}
+    names = [n for n, _ in state.model.named_parameters()]
+    ema = dict(zip(names, state.ema_tensors()))
+    mom = dict(zip(names, state.momentum_tensors()))
     return {"step": int(state.step), "params": trees["params"],
             "batch_stats": trees["batch_stats"],
             "ema_params": jax_trees_from_torch_state(ema)["params"],
@@ -267,23 +353,27 @@ def _load_params(module: torch.nn.Module, params: dict,
         {"params": params, "batch_stats": batch_stats}))
 
 
+def _param_tensors(state: TrainState, params: dict) -> list:
+    """A flax params tree as the model's parameters' tensors, in order."""
+    sd = torch_state_from_jax({"params": params})
+    return [torch.as_tensor(sd[n], device=p.device)
+            for n, p in state.model.named_parameters()]
+
+
 def restore_train_state(path: str, state: TrainState) -> TrainState:
     """Resume: parameters, BatchNorm statistics, EMA, SGD momentum and step
-    from a checkpoint. A checkpoint without optimizer state restarts the
-    momentum from zero, with a message."""
+    from a checkpoint (full trees, sharded as the state is). A checkpoint
+    without optimizer state restarts the momentum from zero, with a
+    message."""
     ck = load_checkpoint(path)
     _load_params(state.model, ck["params"], ck["batch_stats"])
-    _load_params(state.ema, ck["ema_params"], ck["batch_stats"])
-    state.opt.state.clear()
+    state.params_loaded()
+    state.set_ema(_param_tensors(state, ck["ema_params"]))
     opt = ck.get("opt_state")
     if opt is None:
         print("[Resume] checkpoint has no optimizer state; momentum "
               "restarts from zero")
-    else:
-        mom = torch_state_from_jax({"params": opt})
-        for name, p in state.model.named_parameters():
-            state.opt.state[p]["momentum_buffer"] = torch.as_tensor(
-                mom[name], device=p.device).clone()
+    state.set_momentum(None if opt is None else _param_tensors(state, opt))
     state.step = int(ck["step"])
     return state
 
@@ -307,6 +397,7 @@ def warm_start_state(path: str, state: TrainState,
     src = ck["ema_params"] if ck.get("ema_params") is not None \
         else ck["params"]
     _load_params(state.model, src, ck["batch_stats"])
+    state.params_loaded()
     state.reset_ema()
     return state
 
@@ -323,10 +414,24 @@ def _log(epoch: int, i: int, m) -> None:
 
 def state_tensors(state: TrainState) -> dict:
     """Every tensor the processes of a data-parallel group must hold alike:
-    the parameters, the BatchNorm statistics and the EMA."""
+    the parameters, the BatchNorm statistics and the EMA (gathered from a
+    sharded state's shards)."""
+    state.sync()
     out = {f"model.{k}": v for k, v in state.model.state_dict().items()}
-    out.update({f"ema.{k}": p for k, p in state.ema.named_parameters()})
+    names = [n for n, _ in state.model.named_parameters()]
+    out.update({f"ema.{k}": t for k, t in zip(names, state.ema_tensors())})
     return out
+
+
+def owned_state_bytes(state: TrainState) -> dict:
+    """The bytes of training state this process owns, reckoned from the
+    shapes: the master parameters, SGD momentum and EMA (their shards, or
+    whole where replicated), the model's buffers (BatchNorm statistics),
+    the step and the schedule; beside them the unsharded state's."""
+    nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+    rest = nbytes(state.model.buffers()) + state.sched.nbytes + 8
+    return {"owned": 3 * nbytes(state.master) + rest,
+            "unsharded": 3 * nbytes(state.model.parameters()) + rest}
 
 
 def fit(state: TrainState, cfg: TrainConfig, train_batches, val_fn=None,
@@ -393,13 +498,15 @@ def fit(state: TrainState, cfg: TrainConfig, train_batches, val_fn=None,
         improved = fitness > best
         if improved:
             best, best_epoch = fitness, epoch
+        # a sharded state's gathers take every process of the mesh
+        payload = checkpoint_payload(state) \
+            if main or state.layout.split else None
         if main:
             sums = dict(zip(METRIC_KEYS, acc.tolist()))
             results.append(
                 epoch=epoch, fitness=fitness,
                 lr=float(schedule_hypers(state.sched, state.step)["lr"]),
                 **{k: v / max(count, 1) for k, v in sums.items()})
-            payload = checkpoint_payload(state)
             if improved:
                 write_checkpoint(os.path.join(ckpt_dir, "best.ckpt"),
                                  payload,

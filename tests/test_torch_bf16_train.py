@@ -220,6 +220,6 @@ def test_train_step_bf16_keeps_float32_state(steps):
     for n, p in st.model.named_parameters():
         assert p.dtype == p.grad.dtype == torch.float32, n
         assert st.opt.state[p]["momentum_buffer"].dtype == torch.float32, n
-    assert {e.dtype for e in st.ema.parameters()} == {torch.float32}
+    assert {e.dtype for e in st.ema_tensors()} == {torch.float32}
     floats = [b for b in st.model.buffers() if b.is_floating_point()]
     assert floats and {b.dtype for b in floats} == {torch.float32}

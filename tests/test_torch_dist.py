@@ -21,7 +21,6 @@ file), held to one process on the whole global batch:
 * a global batch the processes do not divide raises ``SystemExit``.
 """
 
-import dataclasses
 import os
 import pickle
 import socket
@@ -30,15 +29,10 @@ import sys
 
 import flax.linen as fnn
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from oriented_object_detection_tpu.config import TrainConfig as JaxCfg
-from oriented_object_detection_tpu.models import YOLO11OBB as JaxModel
-from oriented_object_detection_tpu.train import trainer as JT
-from oriented_object_detection_tpu.train.loss import LossConfig as JaxLoss
 from oriented_object_detection_tpu_torch.config import TrainConfig
 from oriented_object_detection_tpu_torch.data import labels as TL
 from oriented_object_detection_tpu_torch.data.loader import TileDataset
@@ -46,7 +40,6 @@ from oriented_object_detection_tpu_torch.eval.val import validate_tiles
 from oriented_object_detection_tpu_torch.infer.pipeline import build_detector
 from oriented_object_detection_tpu_torch.models import layers as TLY
 from oriented_object_detection_tpu_torch.models import weights as TW
-from oriented_object_detection_tpu_torch.ops import geometry as G
 from oriented_object_detection_tpu_torch.train import trainer as TT
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -57,6 +50,11 @@ sys.path.insert(0, REPO)
 sys.path.insert(0, os.path.join(REPO, "tests"))
 from tools.train_synthetic import gen_map  # noqa: E402
 from torch_parity import one_torch_thread  # noqa: E402,F401
+import torch_dist_worker as WK  # noqa: E402
+from torch_parity import (  # noqa: E402
+    assert_trees_close as _assert_trees_close,
+    assert_trees_equal as _assert_trees_equal, jax_global_step, step_batch,
+    tree_get as _get, tree_leaves as _leaves)
 
 TS, B, M, WORLD = 64, 2, 16, 2
 # float32, as the JAX step it is held to (the port's default is bf16)
@@ -64,63 +62,6 @@ STEP_CFG = dict(tile_size=TS, batch_size=B, model_scale="n", epochs=3,
                 compute_dtype="float32")
 FIT_CFG = dict(tile_size=TS, batch_size=4, model_scale="n", epochs=1,
                compute_dtype="float32")
-
-
-def _max_rel(a, b):
-    return float(np.abs(np.asarray(a) - np.asarray(b)).max()
-                 / max(np.abs(np.asarray(a)).max(), 1e-6))
-
-
-def _leaves(tree, prefix=()):
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            yield from _leaves(v, prefix + (k,))
-        else:
-            yield prefix + (k,), np.asarray(v)
-
-
-def _get(tree, path):
-    for k in path:
-        tree = tree[k]
-    return np.asarray(tree)
-
-
-def _assert_trees_close(got, ref, rtol):
-    n = 0
-    for path, r in _leaves(jax.tree.map(np.asarray, ref)):
-        g = _get(got, path)
-        assert g.shape == r.shape, path
-        assert _max_rel(r, g) <= rtol, (path, _max_rel(r, g))
-        n += 1
-    assert n > 100
-
-
-def _assert_trees_equal(a, b):
-    for path, x in _leaves(a):
-        np.testing.assert_array_equal(x, _get(b, path), err_msg=str(path))
-
-
-def _step_batch():
-    """Two 64 tiles of one seeded map with their boxes in pixels (the batch
-    of ``test_torch_train.py``)."""
-    img, lab = gen_map(np.random.RandomState(1), H=TS, W=TS * B, n_obj=8)
-    imgs = np.stack([img[:, i * TS:(i + 1) * TS]
-                     for i in range(B)]).astype(np.float32) / 255.0
-    lab[:, 1::2] *= TS * B
-    lab[:, 2::2] *= TS
-    gl = np.zeros((B, M), np.int32)
-    gm = np.zeros((B, M), bool)
-    gb = np.zeros((B, M, 5), np.float32)
-    for i in range(B):
-        cx = lab[:, 1::2].mean(1)
-        sel = lab[(cx >= i * TS) & (cx < (i + 1) * TS)]
-        c8 = sel[:, 1:].copy()
-        c8[:, 0::2] -= i * TS
-        gl[i, :len(sel)] = sel[:, 0]
-        gm[i, :len(sel)] = True
-        gb[i, :len(sel)] = G.corners8_to_xywhr_np(c8)
-    assert gm.sum(1).min() > 0
-    return imgs, gl, gb, gm
 
 
 def _tiles(root):
@@ -185,7 +126,7 @@ def inputs(tmp_path_factory):
     maps = [gen_map(np.random.RandomState(30 + i), H=h, W=w, n_obj=12)[0]
             for i, (h, w) in enumerate(((250, 300), (300, 180)))]
     mrng = np.random.RandomState(5)
-    imgs, gl, gb, gm = _step_batch()
+    imgs, gl, gb, gm = step_batch(1, TS, B, M)
     return {
         "root": root,
         "x": (rng.randn(4, 16, 3, 3) * 3 + 1).astype(np.float32),
@@ -219,27 +160,8 @@ def started(inputs):
 def jax_step(inputs, started):
     """The JAX package's one-process step on the global batch of two, from
     the same weights, momentum and step."""
-    weights, mom, b = inputs["weights"], inputs["mom"], inputs["batch"]
-    jcfg = dataclasses.replace(JaxCfg(), tile_size=TS, batch_size=B,
-                               model_scale="n", compute_dtype="float32",
-                               epochs=3)
-    sched = TT.make_sched_vector(TrainConfig(**STEP_CFG), 4)
-    with jax.enable_x64(False):
-        state = JT.TrainState(
-            step=jnp.asarray(2, jnp.int32),
-            params=jax.tree.map(jnp.asarray, weights["params"]),
-            batch_stats=jax.tree.map(jnp.asarray, weights["batch_stats"]),
-            opt_state=jax.tree.map(jnp.asarray, mom),
-            ema_params=jax.tree.map(jnp.array, weights["params"]),
-            sched=jnp.asarray(sched))
-        step_fn = JT.make_train_step(JaxModel(nc=12, scale="n"), None, jcfg,
-                                     JaxLoss(nc=12, img_size=TS))
-        new, metrics = step_fn(state, {
-            "images": jnp.asarray(b["images"].transpose(0, 2, 3, 1)),
-            "gt_labels": jnp.asarray(b["gt_labels"].astype(np.int32)),
-            "gt_xywhr": jnp.asarray(b["gt_xywhr"]),
-            "gt_mask": jnp.asarray(b["gt_mask"])})
-        return jax.tree.map(np.asarray, (new, metrics))
+    return jax_global_step(inputs["weights"], inputs["mom"], inputs["batch"],
+                           STEP_CFG)
 
 
 @pytest.fixture(scope="module")
@@ -410,3 +332,84 @@ def test_batch_the_processes_do_not_divide_raises(ranks):
     for r in ranks:
         assert r["odd_batch"] == "--batch-size 3 must divide by the 2 " \
                                  "processes"
+
+
+# ---------------------------------------------------------------------------
+# bf16, the port's default compute dtype, under --dist
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def one_process_steps(inputs):
+    """One process's step on the whole global batch from the workers'
+    start, in bf16 and in float32: {dtype: payload}."""
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        cfg, st = WK.start_state(inputs, dtype)
+        TT.train_step(st, WK.rows_of(inputs, 0, B), cfg)
+        out[dtype] = TT.checkpoint_payload(st)
+    return out
+
+
+def _update_gap(a: dict, b: dict, start: dict) -> list:
+    """Per leaf, the relative L2 distance of ``a``'s update (after minus
+    ``start``) from ``b``'s."""
+    out = []
+    for path, s in _leaves(start):
+        ua, ub = _get(a, path) - s, _get(b, path) - s
+        out.append(float(np.linalg.norm(ua - ub)
+                         / max(np.linalg.norm(ub), 1e-30)))
+    return np.asarray(out)
+
+
+def test_two_process_bf16_step_within_the_bf16_yardstick(inputs, ranks,
+                                                        one_process_steps):
+    """Two processes in bf16 (one row each) against one process in bf16
+    on the global batch of two: the processes bit-equal to each other,
+    every parameter, gradient, momentum buffer, EMA leaf and statistic
+    float32, and the median over the leaves of the update's distance from
+    the one-process bf16 update no larger than the one-process bf16
+    update's distance from the float32 one (the JAX package's yardstick
+    for a rounding difference)."""
+    a, b = (r["step_bf16"] for r in ranks)
+    np.testing.assert_array_equal(a["metrics"], b["metrics"])
+    for key in ("params", "ema_params", "batch_stats", "opt_state"):
+        _assert_trees_equal(a["payload"][key], b["payload"][key])
+    for kind, dtypes in a["dtypes"].items():
+        assert dtypes == {"torch.float32"}, kind
+    one16, one32 = one_process_steps["bfloat16"], one_process_steps["float32"]
+    for tree in ("params", "batch_stats"):
+        start = inputs["weights"][tree]
+        dist = _update_gap(a["payload"][tree], one16[tree], start)
+        yard = _update_gap(one16[tree], one32[tree], start)
+        print(f"{tree}: median two-process vs one-process bf16 "
+              f"{np.median(dist):.3e}, one-process bf16 vs float32 "
+              f"{np.median(yard):.3e} over {len(dist)} leaves")
+        assert np.median(dist) <= np.median(yard), tree
+
+
+@pytest.mark.parametrize("channels", ["3ch", "4ch"])
+def test_two_process_bf16_detect_pairs_with_one_process(inputs, ranks,
+                                                        channels):
+    """``detect_images`` in bf16 in two processes: the processes' rows
+    equal, and paired with one process's bf16 rows by ``chip_smoke.py``'s
+    rule for bf16 rows (``BF16_ROWS``: class, IoU >= 0.5, conf within
+    0.05, at most 1% unpaired above 0.40), no farther in conf than one
+    process's bf16 rows are from its float32 rows."""
+    import chip_smoke
+
+    name, ts, ov, ckpt, ch = next(d for d in WK.DETECTORS if d[0] == channels)
+    one = {dtype: build_detector([(ts, ov, inputs[ckpt])], channels=ch,
+                                 device="cpu", compute_dtype=dtype
+                                 ).detect_images(inputs["maps"])
+           for dtype in ("bfloat16", "float32")}
+    rows = lambda res: [r["merged_for_pr"] for r in res]
+    a, b = (rows(r["detect_bf16"][channels]) for r in ranks)
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x, y)
+    got = chip_smoke.pair_maps(a, rows(one["bfloat16"]), channels)
+    yard = chip_smoke.pair_maps(rows(one["bfloat16"]), rows(one["float32"]),
+                                channels, strict=False)
+    print(f"{channels}: two-process vs one-process bf16 {got}; "
+          f"one-process bf16 vs float32 {yard}")
+    assert got["pairs"] > 0
+    assert got["max_dconf"] <= max(yard["max_dconf"], 1e-6)

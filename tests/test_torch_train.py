@@ -349,7 +349,7 @@ def test_resume_restores_momentum(weights, batch, tmp_path):
                            fresh.opt.state[q]["momentum_buffer"]), n
         moved += bool(st.opt.state[p]["momentum_buffer"].abs().max() > 0)
     assert moved > 100
-    for a, b in zip(st.ema.parameters(), fresh.ema.parameters()):
+    for a, b in zip(st.ema_tensors(), fresh.ema_tensors()):
         assert torch.equal(a, b)
     m1 = TT.train_step(st, tb, cfg)
     m2 = TT.train_step(fresh, tb, cfg)
@@ -370,6 +370,6 @@ def test_warm_start_rejects_a_mismatched_architecture(tmp_path):
         dataclasses.replace(cfg, seed=7), 4, "cpu"),
         expect={"model_scale": "n", "channels": 3})
     for a, b, e in zip(st.model.parameters(), warm.model.parameters(),
-                       warm.ema.parameters()):
+                       warm.ema_tensors()):
         assert torch.equal(a, b) and torch.equal(b, e)
     assert warm.step == 0
