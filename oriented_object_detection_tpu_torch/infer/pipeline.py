@@ -14,7 +14,10 @@ queues without a host synchronization: each scale's fixed-shape rows come
 back into pinned memory behind a CUDA event that the host waits on before
 its merges, and the stream uploads each later group from pinned memory on a
 side stream. The tiles go through the network in chunks of a fixed number
-of pixels, so memory stays bounded however many maps come.
+of pixels, so memory stays bounded however many maps come. Under a
+``torch.profiler`` the path marks its layers with ``utils/profiling``
+spans: the stages, ``tiles_<tile>``, ``forward_<tile>``, ``decode_raw``
+and ``postprocess_batch``.
 ``predict_crop`` is the reference's single-crop predictor (letterbox, one
 forward, no tiling).
 
@@ -181,12 +184,16 @@ class TiledDetector:
         of n tiles [n, ts, ts, 3] at origins ``grid_t`` [n, 4], the first
         being tile ``first`` of the scale's batch."""
         cfg = self.cfg
-        x = DT.build_multich(tiles, cfg.channels, cfg.dt_edge) / 255.0
-        out = self.models[ts](x.to(self.dtype))
-        rbox, scores = D.decode_raw(out, ts)
-        dets = D.postprocess_batch(
-            rbox, scores, self._conf_thr(), cfg.engine_nms_iou,
-            max_det=cfg.max_det_per_tile, pre_topk=cfg.pre_topk)
+        x = (DT.build_multich(tiles, cfg.channels, cfg.dt_edge)
+             / 255.0).to(self.dtype)
+        with prof.span(f"forward_{ts}"):
+            out = self.models[ts](x)
+        with prof.span("decode_raw"):
+            rbox, scores = D.decode_raw(out, ts)
+        with prof.span("postprocess_batch"):
+            dets = D.postprocess_batch(
+                rbox, scores, self._conf_thr(), cfg.engine_nms_iou,
+                max_det=cfg.max_det_per_tile, pre_topk=cfg.pre_topk)
         c8g = T.stitch_to_global(dets["corners8"], grid_t[:, :2])
         valid = dets["valid"]
         margin = float(T.margin_for(ts, cfg.margin_128, cfg.margin_416))
@@ -218,7 +225,8 @@ class TiledDetector:
         segments = list(zip(starts[:-1].tolist(), counts))
         owner = np.repeat(np.arange(len(maps)), counts)
         flat = np.concatenate(grids)
-        padded = [T.pad_for_tiles(m, ts) for m in maps]
+        with prof.span(f"tiles_{ts}"):
+            padded = [T.pad_for_tiles(m, ts) for m in maps]
         per = max(1, TILE_PIXELS_PER_FORWARD // (ts * ts))
         shares = [PM.rank_range(len(flat), r, PD.world())
                   for r in range(PD.world())]
@@ -227,9 +235,10 @@ class TiledDetector:
         for a in range(lo, hi, per):
             b = min(a + per, hi)
             own = owner[a:b]
-            tiles = torch.cat([
-                T.gather_tiles(padded[i], flat[a:b][own == i], ts)
-                for i in np.unique(own)])
+            with prof.span(f"tiles_{ts}"):
+                tiles = torch.cat([
+                    T.gather_tiles(padded[i], flat[a:b][own == i], ts)
+                    for i in np.unique(own)])
             rows.append(self._tile_rows(tiles, grid_t[a:b], a, ts))
         if not PD.active():
             return torch.cat(rows), segments
@@ -261,14 +270,15 @@ class TiledDetector:
     @staticmethod
     def _fetch(pending: list) -> list:
         """Wait for each scale's rows: [(tile_size, rows [T, max_det, 13]
-        float32 numpy, segments)]."""
+        float32 numpy, segments)]. The group's waits on the card are one
+        ``detect/wait`` span."""
         with prof.timed("detect/fetch"):
-            out = []
-            for ts, buf, done, segments in pending:
-                if done is not None:
-                    done.synchronize()
-                out.append((ts, buf.numpy(), segments))
-        return out
+            with prof.timed("detect/wait"):
+                for _, _, done, _ in pending:
+                    if done is not None:
+                        done.synchronize()
+            return [(ts, buf.numpy(), segments)
+                    for ts, buf, _, segments in pending]
 
     @staticmethod
     def _merge_collected(flat: np.ndarray, merge_iou: float) -> np.ndarray:

@@ -1,25 +1,33 @@
-"""Stage timers and the device trace.
+"""Stage timers and spans: the port's one tracing module.
 
+* ``span(name)`` - while a ``torch.profiler`` is collecting, a
+  ``record_function`` range named ``obb/<name>``, so the host's spans lie
+  on the profiler's clock beside the card's kernels; otherwise one check
+  of the profiler's enabled flag and a shared do-nothing context, with no
+  ``record_function`` made.
 * ``timed(name)`` - a context manager that adds the host wall time of its
-  block to a process-wide registry under ``name`` (the multi-map detect
-  path records ``detect/h2d``, ``detect/dispatch``, ``detect/fetch``,
-  ``detect/merge_{tile_size}`` and ``detect/fusion``). It never
-  synchronizes the device: a synchronize inside a span would serialize the
-  pipeline it measures. A caller that wants a span to hold the device's
-  time synchronizes inside it.
-* ``trace(log_dir)`` - a ``torch.profiler`` trace of the block (CPU, and
-  the card's kernels where there is one), written as a Chrome trace.
-* ``report()`` / ``print_report()`` - per-stage calls, total and mean.
+  block to a process-wide registry under ``name`` and opens
+  ``span("stage/" + name)``. The multi-map detect path records
+  ``detect/h2d``, ``detect/dispatch``, ``detect/fetch`` (holding
+  ``detect/wait``, the host's wait on the card for one group),
+  ``detect/merge_{tile_size}`` and ``detect/fusion``. It never
+  synchronizes the device: a synchronize inside a span would serialize
+  the pipeline it measures. A caller that wants a span to hold the
+  device's time synchronizes inside it.
+* ``report()`` - per stage calls, total and mean.
 """
 
 from __future__ import annotations
 
 import contextlib
-import os
 import time
-from collections import defaultdict
 
-_STAGES: dict[str, list[float]] = defaultdict(list)
+import torch
+
+SPAN_PREFIX = "obb/"
+
+_NO_SPAN = contextlib.nullcontext()
+_STAGES: dict[str, list] = {}   # name -> [calls, total seconds]
 _ENABLED = True
 
 
@@ -32,51 +40,29 @@ def reset() -> None:
     _STAGES.clear()
 
 
+def span(name: str):
+    """``obb/<name>`` on the profiler's timeline while one is collecting."""
+    if not torch._C._autograd._profiler_enabled():
+        return _NO_SPAN
+    return torch.profiler.record_function(SPAN_PREFIX + name)
+
+
 @contextlib.contextmanager
 def timed(name: str):
-    if not _ENABLED:
-        yield
-        return
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        _STAGES[name].append(time.perf_counter() - t0)
-
-
-@contextlib.contextmanager
-def trace(log_dir: str):
-    """``torch.profiler`` over the block; the trace goes to
-    ``log_dir/trace.json`` (Perfetto and chrome://tracing read it)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    acts = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(ProfilerActivity.CUDA)
-    with profile(activities=acts) as prof:
-        yield prof
-    os.makedirs(log_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+    with span("stage/" + name):
+        if not _ENABLED:
+            yield
+            return
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            stage = _STAGES.setdefault(name, [0, 0.0])
+            stage[0] += 1
+            stage[1] += time.perf_counter() - t0
 
 
 def report() -> dict[str, dict]:
-    out = {}
-    for name, times in sorted(_STAGES.items()):
-        out[name] = {
-            "calls": len(times),
-            "total_s": sum(times),
-            "mean_ms": sum(times) / len(times) * 1000.0,
-        }
-    return out
-
-
-def print_report() -> None:
-    rep = report()
-    if not rep:
-        return
-    width = max(len(k) for k in rep)
-    print(f"{'stage'.ljust(width)}  calls  total(s)  mean(ms)")
-    for k, v in rep.items():
-        print(f"{k.ljust(width)}  {v['calls']:5d}  {v['total_s']:8.3f}"
-              f"  {v['mean_ms']:8.2f}")
+    return {name: {"calls": calls, "total_s": total,
+                   "mean_ms": total / calls * 1000.0}
+            for name, (calls, total) in sorted(_STAGES.items())}

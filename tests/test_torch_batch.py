@@ -115,7 +115,7 @@ def test_detect_stream_equals_detect_images_per_group(detector, maps):
 def test_profiling_records_the_stage_names(batched):
     rep = prof.report()
     assert set(rep) == {"detect/h2d", "detect/dispatch", "detect/fetch",
-                        "detect/merge_416", "detect/fusion"}
+                        "detect/wait", "detect/merge_416", "detect/fusion"}
     assert all(v["calls"] >= 1 and v["total_s"] >= 0 for v in rep.values())
     prof.enable(False)
     try:
