@@ -12,9 +12,10 @@ bounds hold as before:
 1. device  - the card's name and power limit (nvidia-smi) and the float32
              matmul/convolution precision it runs with (TF32 off).
 2. build   - builds, all at once, the EDT kernels (``csrc/edt.cu``, nvcc
-             for sm_90a), the host geometry library (``native/geom.cpp``,
-             g++), and edt.cu once more with ``-Xptxas -v`` for each
-             kernel's registers, shared memory and spills.
+             for sm_90a), the epilogue kernel (``csrc/epilogue.cu``, the
+             same way), the host geometry library (``native/geom.cpp``,
+             g++), and both .cu files once more with ``-Xptxas -v`` for
+             each kernel's registers, shared memory and spills.
 3. sqrt    - float32 ``torch.sqrt`` on the card against a float64 sqrt
              rounded once to float32, over every non-negative finite
              float32: ``ops.edt.sqrt_rn`` relies on their being equal.
@@ -27,6 +28,17 @@ bounds hold as before:
              masks of the synthetic map below (with K2's time per tile);
              then bit-equality alone on shapes that cut the kernels' tiles
              raggedly, and that one ``edt_l2`` call is two device kernels.
+   epilogue - the fused ConvBN's epilogue kernel (``csrc/epilogue.cu``)
+             in the x-scale dual detector's channels-last forward at a
+             4096x4096 sheet's chunk of each scale (1764 tiles of 128, 169
+             of 416), bf16 and float32: each fused ConvBN's kernel output
+             bit-equal to its plain version on the same conv output, one
+             launch a fused ConvBN; in bf16 a profiled forward of each
+             scale with no cuDNN layout transpose (any layout kernel left
+             reported with its time) whose span holds the launch of every
+             epilogue kernel, and the epilogues' device time beside
+             the plain version's, the library's and the bytes bound; one
+             ``detect_image`` launching it once a fused ConvBN a forward.
 5. slice   - runs the 4-channel 416/100 detector on the committed
              ``train416_4ch.ckpt`` (YOLO11n-OBB) over a seeded synthetic
              1024x1024 map (16 tiles): both kernels must launch, the
@@ -177,6 +189,7 @@ DUAL = tuple((ts, ov, os.path.join(REPO, "assets", "bench_ckpts",
              for ts, ov in ((128, 30), (416, 100)))
 CSRC = os.path.join(REPO, "oriented_object_detection_tpu_torch", "csrc")
 KERNELS = ("edt_pass1_columns", "edt_pass2_rows")
+EPILOGUE_KERNELS = ("bias_silu_nhwc",)
 # shapes that cut K1's 32-column strips and 32-row segments (4097 rows
 # also pass one block's 1024 rows) and K2's row slots raggedly; 20000 is a
 # row wide enough for the shared-memory opt-in
@@ -328,15 +341,19 @@ def bound(nbytes: float, ops: float) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def ptxas_report(E) -> dict:
-    """Registers, shared memory and spills of each kernel of edt.cu, from
+def ptxas_report(source: str, kernels) -> dict:
+    """Registers, shared memory and spills of each kernel of ``source``
+    (named by the entry of ``kernels`` its symbol holds, and its template
+    arguments: ``edt_pass2_rows<4>``, ``bias_silu_nhwc<1,1>``), from
     ``nvcc -Xptxas -v`` (a cubin in a temporary directory)."""
+    from oriented_object_detection_tpu_torch.utils import build as B
+
     with tempfile.TemporaryDirectory() as tmp:
         res = subprocess.run(
-            [E._nvcc()] + [f for f in E.NVCC_FLAGS
-                           if f not in ("-shared", "-Xcompiler", "-fPIC")]
+            [B.nvcc()] + [f for f in B.NVCC_FLAGS
+                          if f not in ("-shared", "-Xcompiler", "-fPIC")]
             + ["-cubin", "-Xptxas", "-v", "-o",
-               os.path.join(tmp, "edt.cubin"), E.KERNEL_SOURCE],
+               os.path.join(tmp, "k.cubin"), source],
             capture_output=True, text=True, timeout=300)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc -Xptxas -v failed:\n{res.stderr}")
@@ -345,9 +362,9 @@ def ptxas_report(E) -> dict:
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             raw = m.group(1)
-            name = next(k for k in KERNELS if k in raw)
-            vec = re.search(r"ILi(\d)E", raw)
-            name += f"<{vec.group(1)}>" if vec else ""
+            name = next(k for k in kernels if k in raw)
+            args = re.findall(r"L[a-z](\d+)E", raw[raw.index(name):])
+            name += f"<{','.join(args)}>" if args else ""
             out[name] = {}
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
@@ -765,6 +782,238 @@ def phase_profile(torch, det, img, maps: int, phase: str) -> None:
           "device_ms_by_kind": by_kind,
           "top_kernels": [{"name": k[:90], "device_ms": v} for k, v in
                           sorted(by_name.items(), key=lambda kv: -kv[1])[:12]]})
+
+
+# ---------------------------------------------------------------------------
+# The fused ConvBN's epilogue in the channels-last forward
+# ---------------------------------------------------------------------------
+
+# tiles of a 4096x4096 sheet at each dual scale: one forward each (the
+# chunks of ``detect_stream`` on the benchmark's sheets)
+SHEET_TILES = {128: 1764, 416: 169}
+# cuDNN's layout transposes around its NHWC kernels
+LAYOUT_KERNELS = ("nchwToNhwc", "nhwcToNchw")
+
+
+def sheet_chunk(torch, det, img, ts: int):
+    """The network input of a 4096x4096 sheet's chunk at tile size ``ts``
+    (``SHEET_TILES[ts]`` tiles: those of ``img``, repeated), cast and laid
+    out as ``TiledDetector._tile_rows`` does."""
+    from oriented_object_detection_tpu_torch.ops import dtedge as DT
+    from oriented_object_detection_tpu_torch.ops import tiling as T
+
+    ov = next(sc.overlap for sc in det.cfg.scales if sc.tile_size == ts)
+    grid = T.inference_tile_grid(*img.shape[:2], ts, ov)
+    tiles = T.extract_tiles(torch.from_numpy(img).cuda(), grid, ts)
+    tiles = tiles[torch.arange(SHEET_TILES[ts], device=tiles.device)
+                  % len(tiles)]
+    return (DT.build_multich(tiles, det.cfg.channels) / 255.0).to(
+        det.dtype, memory_format=det.layout)
+
+
+@contextlib.contextmanager
+def epilogue_as(TL, fn):
+    """Every fused ConvBN's epilogue through ``fn`` (y, bias, act)."""
+    saved = TL.bias_silu_nhwc
+    TL.bias_silu_nhwc = fn
+    try:
+        yield
+    finally:
+        TL.bias_silu_nhwc = saved
+
+
+def epilogue_times(torch, TL, EP, model, x) -> dict:
+    """Device ms of one forward's epilogues, summed over its fused ConvBNs:
+    the kernel (``ms``), its plain version (``plain_ms``: the broadcast
+    add, then SiLU out of place) and the library's in-place pair
+    ``F.silu(y.add_(b), inplace=True)`` (``library_ms``); and their bytes
+    bound (each element read and written once at 3.35 TB/s). Each call is
+    queued behind a short device sleep, so its two events time the device
+    alone."""
+    def library(y, bias, act):
+        y = y.add_(bias.to(y.dtype)[:, None, None])
+        return torch.nn.functional.silu(y, inplace=True) if act else y
+
+    sleep = int(0.05 * sleep_cycles_per_ms())
+    out = {}
+    for key, impl in (("ms", EP.bias_silu_nhwc),
+                      ("plain_ms", EP.bias_silu_nhwc_plain),
+                      ("library_ms", library)):
+        events, nbytes = [], []
+
+        def timed(y, bias, act):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(sleep)
+            start.record()
+            res = impl(y, bias, act)
+            end.record()
+            events.append((start, end))
+            nbytes.append(2 * y.numel() * y.element_size())
+            return res
+
+        with torch.inference_mode(), epilogue_as(TL, timed):
+            for _ in range(2):    # warm, then timed
+                events.clear()
+                nbytes.clear()
+                model(x)
+                torch.cuda.synchronize()
+        out[key] = sum(s.elapsed_time(e) for s, e in events)
+    out["bytes"] = sum(nbytes)
+    out["bound_ms"] = out["bytes"] / HBM_BYTES_PER_S * 1e3
+    return out
+
+
+def kernels_in_span(prof, span: str) -> dict:
+    """Kernels by name whose launching operator starts inside the host
+    span ``span`` (a ``record_function`` range) of a finished profile: the
+    rule by which the benchmark's traced runs give a kernel to a span (the
+    profiler links a kernel to its operator by correlation id)."""
+    from torch.autograd import DeviceType
+
+    events = prof.profiler.kineto_results.events()
+    ops, inside, count = {}, [], {}
+    for e in events:
+        if e.device_type() == DeviceType.CPU:
+            if e.name() == span:
+                inside.append((e.start_ns(), e.start_ns() + e.duration_ns()))
+            elif e.linked_correlation_id() == 0:
+                ops[e.correlation_id()] = e.start_ns()
+    for e in events:
+        if e.device_type() == DeviceType.CUDA and not e.name() == span:
+            t = ops.get(e.linked_correlation_id())
+            if t is not None and any(a <= t <= b for a, b in inside):
+                count[e.name()] = count.get(e.name(), 0) + 1
+    return count
+
+
+def forward_kernels(torch, model, x) -> dict:
+    """One warm forward under ``torch.profiler``, in a span
+    ``obb/forward`` as ``TiledDetector`` opens it: device ms by kind and by
+    kernel, the epilogue kernel's launches, those of them that the span
+    holds, and every kernel whose name speaks of a layout (NCHW/NHWC,
+    transpose) with its ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from oriented_object_detection_tpu_torch.utils import profiling as P
+
+    with torch.inference_mode():
+        model(x)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with P.span("forward"):
+                model(x)
+            torch.cuda.synchronize()
+    in_span = kernels_in_span(prof, P.SPAN_PREFIX + "forward")
+    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+           and not e.name.startswith(P.SPAN_PREFIX)]
+    if not ops:
+        raise AssertionError("the profiler recorded no device work")
+    by_kind, by_name, count = {}, {}, {}
+    for e in ops:
+        ms = (e.time_range.end - e.time_range.start) / 1e3
+        by_kind[kernel_kind(e.name)] = by_kind.get(kernel_kind(e.name),
+                                                   0.0) + ms
+        by_name[e.name] = by_name.get(e.name, 0.0) + ms
+        count[e.name] = count.get(e.name, 0) + 1
+    layout = {k[:120]: v for k, v in by_name.items()
+              if re.search("nchw|nhwc|transpose", k, re.IGNORECASE)}
+    return {"device_ms": busy_ms((e.time_range.start, e.time_range.end)
+                                 for e in ops),
+            "device_ops": len(ops), "device_ms_by_kind": by_kind,
+            "epilogue_launches": sum(n for k, n in count.items()
+                                     if "bias_silu_nhwc" in k),
+            "epilogue_launches_in_span": sum(
+                n for k, n in in_span.items() if "bias_silu_nhwc" in k),
+            "layout_kernels_ms": layout,
+            "cudnn_transposes": sorted(k[:120] for k in by_name if any(
+                t in k for t in LAYOUT_KERNELS)),
+            "top_kernels": [{"name": k[:120], "ms": v, "launches": count[k]}
+                            for k, v in sorted(by_name.items(),
+                                               key=lambda kv: -kv[1])[:15]]}
+
+
+def phase_epilogue(torch, img) -> dict:
+    """The fused ConvBN's epilogue kernel (``csrc/epilogue.cu``) in the
+    x-scale dual detector's channels-last forward, bf16 and float32: at a
+    4096x4096 sheet's chunk of each scale, every fused ConvBN's kernel
+    output bit-equal to the plain version on the same conv output, one
+    launch a fused ConvBN; in bf16 a profiled forward of each scale (no
+    cuDNN layout transpose may remain; any layout kernel left is reported
+    with its time) and the epilogues' device time beside the plain
+    version's, the library's and the bytes bound; then one
+    ``detect_image`` launching the kernel once a fused ConvBN a forward."""
+    from oriented_object_detection_tpu_torch.infer.pipeline import (
+        build_detector)
+    from oriented_object_detection_tpu_torch.models import layers as TL
+    from oriented_object_detection_tpu_torch.ops import epilogue as EP
+
+    t0 = time.perf_counter()
+    EP.kernel_library()
+    out = {"build_s": time.perf_counter() - t0}
+    for dtype, fields in (("bf16", {}), ("float32", F32)):
+        det = build_detector(DUAL, **fields)
+        if det.layout != torch.channels_last:
+            raise AssertionError(f"the card's detector is not channels-last: "
+                                 f"{det.layout}")
+        fused = {ts: sum(isinstance(m, TL.ConvBN) and m.fused
+                         for m in model.modules())
+                 for ts, model in det.models.items()}
+        for ts, model in det.models.items():
+            x = sheet_chunk(torch, det, img, ts)
+            shapes = []
+
+            def checked(y, bias, act, _ts=ts):
+                ref = EP.bias_silu_nhwc_plain(y.clone(), bias, act)
+                got = EP.bias_silu_nhwc(y, bias, act)
+                if not torch.equal(got, ref):
+                    raise AssertionError(
+                        f"bias_silu_nhwc {dtype} at {list(y.shape)} (tile "
+                        f"{_ts}, act {act}) differs from its plain version")
+                shapes.append(list(y.shape))
+                return got
+
+            before = EP.LAUNCHES["bias_silu_nhwc"]
+            with torch.inference_mode(), epilogue_as(TL, checked):
+                model(x)
+            torch.cuda.synchronize()
+            launched = EP.LAUNCHES["bias_silu_nhwc"] - before
+            if not launched == len(shapes) == fused[ts]:
+                raise AssertionError(f"{dtype} tile {ts}: {launched} "
+                                     f"launches, {len(shapes)} calls, "
+                                     f"{fused[ts]} fused ConvBNs")
+            row = {"tiles": SHEET_TILES[ts], "fused_convbn": fused[ts],
+                   "launches": launched, "bit_equal": True,
+                   "largest": max(shapes, key=np.prod)}
+            if dtype == "bf16":
+                row["epilogue"] = epilogue_times(torch, TL, EP, model, x)
+                row["forward"] = forward_kernels(torch, model, x)
+                if row["forward"]["cudnn_transposes"]:
+                    raise AssertionError(
+                        f"tile {ts}: cuDNN layout transposes in the "
+                        f"forward: {row['forward']['cudnn_transposes']}")
+                for key in ("epilogue_launches", "epilogue_launches_in_span"):
+                    if row["forward"][key] != fused[ts]:
+                        raise AssertionError(
+                            f"tile {ts}: {key} {row['forward'][key]}, not "
+                            f"{fused[ts]}")
+            out[f"{dtype}_{ts}"] = row
+            emit({"phase": "epilogue", "dtype": dtype, "tile": ts, **row})
+            del x
+        before = EP.LAUNCHES["bias_silu_nhwc"]
+        det.detect_image(img)
+        torch.cuda.synchronize()
+        launched = EP.LAUNCHES["bias_silu_nhwc"] - before
+        if launched != sum(fused.values()):
+            raise AssertionError(f"{dtype} detect_image: {launched} "
+                                 f"launches, not {sum(fused.values())}")
+        out[f"{dtype}_detect_image_launches"] = launched
+        del det
+    emit({"phase": "epilogue", "build_s": out["build_s"],
+          "detect_image_launches": {k: v for k, v in out.items()
+                                    if k.endswith("_launches")}})
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2915,6 +3164,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, REPO)
     from oriented_object_detection_tpu_torch.config import PRESETS
     from oriented_object_detection_tpu_torch.ops import edt as E
+    from oriented_object_detection_tpu_torch.ops import epilogue as EP
     from oriented_object_detection_tpu_torch.utils import native
 
     smi = subprocess.run(
@@ -2934,10 +3184,13 @@ def main(argv=None) -> int:
         return fn(), time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         builds = {name: pool.submit(timed, fn) for name, fn in (
-            ("edt_cu", E.kernel_library), ("geom_cpp", native.load),
-            ("ptxas", lambda: ptxas_report(E)))}
+            ("edt_cu", E.kernel_library),
+            ("epilogue_cu", EP.kernel_library), ("geom_cpp", native.load),
+            ("ptxas", lambda: {
+                **ptxas_report(E.KERNEL_SOURCE, KERNELS),
+                **ptxas_report(EP.KERNEL_SOURCE, EPILOGUE_KERNELS)}))}
         built = {name: f.result() for name, f in builds.items()}
     ptxas = built["ptxas"][0]
     emit({"phase": "build", "wall_s": time.perf_counter() - t0,
@@ -2953,6 +3206,7 @@ def main(argv=None) -> int:
         "map": torch.from_numpy(edge_masks(rng, (1, 2048, 2048))).cuda(),
         "slice": smask})
     phase_ragged(E, torch)
+    epi = phase_epilogue(torch, img)
     det, sl = phase_slice(torch, E, img)
     if args.profile:
         phase_profile(torch, det, img, args.profile, "profile")
@@ -3000,6 +3254,18 @@ def main(argv=None) -> int:
          **{k: kern["slice"][name][k] for k in keys},
          "shape": ["slice", *smask.shape], "timing": "device_only"}
         for name in KERNELS]})
+    # the epilogue replaces no TPU kernel; one launch a fused ConvBN a
+    # forward, device ms summed over a sheet chunk's forward
+    emit({"epilogue_kernel": {
+        "name": "bias_silu_nhwc", "route": "cuda",
+        "source": "oriented_object_detection_tpu_torch/csrc/epilogue.cu",
+        "replaces": None, "timing": "device_only",
+        "ptxas": {k: {**v, "blocks_per_sm": blocks_per_sm(v, 256, 0)}
+                  for k, v in ptxas.items() if k.startswith(
+                      EPILOGUE_KERNELS)},
+        **{f"tile_{ts}": {"launches_per_forward": epi[f"bf16_{ts}"][
+            "launches"], **epi[f"bf16_{ts}"]["epilogue"]}
+           for ts in SHEET_TILES}}})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

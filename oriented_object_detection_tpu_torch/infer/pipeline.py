@@ -106,7 +106,10 @@ class TiledDetector:
     built at its ``ScaleConfig.model_scale``. ``device=None`` runs on the
     CUDA card; pass ``device="cpu"`` for the CPU. The network computes in
     ``cfg.compute_dtype``: the tiles are cast after ``/255`` (DT-Edge is
-    built in float32 before), decode and NMS upcast to float32.
+    built in float32 before), decode and NMS upcast to float32. On the card
+    the models hold their weights channels-last and take their input so
+    (``layout``), so the forward runs in NHWC order end to end
+    (``models/layers.py``); on the CPU both stay NCHW.
     """
 
     def __init__(self, cfg: DetectConfig, params_by_scale: dict,
@@ -118,6 +121,8 @@ class TiledDetector:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = torch_dtype(cfg.compute_dtype)
+        self.layout = (torch.channels_last if self._on_card()
+                       else torch.contiguous_format)
         self.models = {}
         for sc in cfg.scales:
             # the engine's fuse() before predict: BN folded into the
@@ -129,8 +134,8 @@ class TiledDetector:
             load_state(model, state)
             # the folded weights in the compute dtype, once: the values of
             # flax's cast of the float32 weights at every apply
-            self.models[sc.tile_size] = model.to(self.device,
-                                                 self.dtype).eval()
+            self.models[sc.tile_size] = model.to(
+                self.device, self.dtype, memory_format=self.layout).eval()
         self._side_stream = None   # the card's upload stream, made on use
 
     def _conf_thr(self) -> float:
@@ -184,8 +189,9 @@ class TiledDetector:
         of n tiles [n, ts, ts, 3] at origins ``grid_t`` [n, 4], the first
         being tile ``first`` of the scale's batch."""
         cfg = self.cfg
+        # the tiles come in NHWC order; one cast gives the model's layout
         x = (DT.build_multich(tiles, cfg.channels, cfg.dt_edge)
-             / 255.0).to(self.dtype)
+             / 255.0).to(self.dtype, memory_format=self.layout)
         with prof.span(f"forward_{ts}"):
             out = self.models[ts](x)
         with prof.span("decode_raw"):

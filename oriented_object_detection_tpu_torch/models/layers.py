@@ -7,7 +7,17 @@ BatchNorm uses eps 1e-3 like ultralytics. In training mode it follows
 flax's ``nn.BatchNorm`` (the JAX package's), not ``nn.BatchNorm2d``'s
 update: see ``BatchNorm``. A ConvBN whose ``fused`` flag is set runs the
 fused inference graph, conv + BN bias + SiLU, which is right once
-``fold.fold_bn_state`` has folded the BatchNorm into the conv weights.
+``fold.fold_bn_state`` has folded the BatchNorm into the conv weights; the
+bias and SiLU are one in-place pass, ``ops/epilogue.py``, a kernel on the
+card.
+
+Layout: shapes are NCHW, and every module keeps its input's memory order.
+Training runs NCHW (contiguous) tensors. On the card the detector holds
+its conv weights and its input channels-last (NHWC order,
+``infer/pipeline.py``), so cuDNN runs its NHWC kernels with no layout
+transposes around them, and every op between two convs keeps that order:
+the concatenations, splits, max pools, residual adds and ``upsample2x``,
+and ``Attention``, whose views hold in both orders.
 
 Every module computes in its input's dtype, as flax's ``dtype=x.dtype``
 modules of the JAX package do: a conv casts its float32 weight and bias to
@@ -24,6 +34,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.epilogue import bias_silu_nhwc
 from ..parallel import mesh as PM
 
 BN_EPS = 1e-3
@@ -107,7 +118,11 @@ class Conv2d(nn.Conv2d):
 
 
 class ConvBN(nn.Module):
-    """Conv2d (no bias) + BatchNorm + SiLU."""
+    """Conv2d (no bias) + BatchNorm + SiLU. With ``fused`` set (the
+    detector's folded weights), the folded BatchNorm is the bias, added to
+    the convolution's output in the input's dtype as the JAX package's
+    FoldedBN adds it, and SiLU follows: both in one in-place pass
+    (``ops/epilogue.py``; channels-last on the card), with no backward."""
 
     def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1,
                  g: int = 1, act: bool = True):
@@ -119,11 +134,8 @@ class ConvBN(nn.Module):
 
     def forward(self, x):
         if self.fused:
-            # the folded BatchNorm is its bias, added to the convolution's
-            # output in the input's dtype, as the JAX package's FoldedBN
-            x = self.conv(x).add_(self.bn.bias.to(x.dtype)[:, None, None])
-        else:
-            x = self.bn(self.conv(x))
+            return bias_silu_nhwc(self.conv(x), self.bn.bias, self.act)
+        x = self.bn(self.conv(x))
         return F.silu(x) if self.act else x
 
 
@@ -199,7 +211,11 @@ class SPPF(nn.Module):
 class Attention(nn.Module):
     """PSA multi-head attention over the flattened spatial dim with a
     depthwise positional-encoding branch. The qkv channels are grouped
-    head-major, as ultralytics' ``view(B, nh, 2*kd + hd, N)``."""
+    head-major, as ultralytics' ``view(B, nh, 2*kd + hd, N)``. That view
+    holds for NCHW and for channels-last order alike (it splits the
+    channel axis and merges H with W), so the block keeps its input's
+    layout: v is gathered into a tensor of the input's layout for ``pe``,
+    and the sum takes ``pe``'s layout."""
 
     def __init__(self, dim: int, num_heads: int, attn_ratio: float = 0.5):
         super().__init__()
@@ -226,8 +242,10 @@ class Attention(nn.Module):
                             at_least_float32(k)) * self.scale
         attn = attn.softmax(dim=-1).to(x.dtype)
         out = torch.matmul(v, attn.transpose(-2, -1)).view(B, C, H, W)
-        out = out + self.pe(v.reshape(B, C, H, W))
-        return self.proj(out)
+        pe_in = torch.empty_like(x)
+        pe_in.view(B, self.num_heads, self.head_dim, N).copy_(v)
+        # a sum takes its first operand's layout: pe's, which is x's
+        return self.proj(self.pe(pe_in) + out)
 
 
 class PSABlock(nn.Module):
@@ -259,5 +277,14 @@ class C2PSA(nn.Module):
 
 
 def upsample2x(x: torch.Tensor) -> torch.Tensor:
-    """Nearest-neighbour 2x upsample (NCHW)."""
-    return x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
+    """Nearest-neighbour 2x upsample, in the input's layout: an NCHW
+    (contiguous) input, as training runs, by two ``repeat_interleave``s,
+    whose backward sums the gradient in the JAX package's order, bit for
+    bit (``F.interpolate``'s does not:
+    ``tests/test_torch_epilogue.py::test_upsample_gradient_has_the_reference_bits``);
+    any other, such as the detector's channels-last activations on the
+    card, by ``F.interpolate``, which keeps the layout and copies the same
+    values."""
+    if x.is_contiguous():
+        return x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
+    return F.interpolate(x, scale_factor=2.0, mode="nearest")

@@ -3,7 +3,12 @@
 C2PSA attention), a PAN-FPN neck and a 3-level (strides 8/16/32) OBB head
 with DFL box, class and angle branches. ``self.model[str(i)]`` holds
 ultralytics' layer i, so state-dict keys are ultralytics' (``model.0.conv.
-weight``, ...). All five compound scales and 3- or 4-channel stems."""
+weight``, ...). All five compound scales and 3- or 4-channel stems.
+
+Shapes are NCHW whatever the memory order: a model moved to
+``torch.channels_last`` with an input in that order (the detector on the
+card) runs NHWC end to end, and its outputs keep the NCHW shapes
+(``layers.py``)."""
 
 from __future__ import annotations
 
@@ -61,7 +66,9 @@ class YOLO11OBB(nn.Module):
     divisible by 32) -> {"box", "cls", "ang"}: per-level raw head outputs
     [B, 4*reg_max | nc | ne, Hi, Wi] in the input's dtype, the compute
     dtype (``layers.py``). ``fused_bn=True`` runs the fused
-    conv + bias graph, for BN-folded weights (``fold.py``)."""
+    conv + bias graph, for BN-folded weights (``fold.py``): each ConvBN
+    finished by one in-place bias + SiLU pass (``ops/epilogue.py``), for
+    inference only."""
 
     def __init__(self, nc: int = 12, scale: str = "x", in_channels: int = 3,
                  reg_max: int = 16, ne: int = 1, fused_bn: bool = False):

@@ -204,11 +204,12 @@ def dt_edge_channel(bgr: torch.Tensor, cfg: DTEdgeConfig = DTEdgeConfig(),
 def build_multich(bgr: torch.Tensor, out_channels: int,
                   cfg: DTEdgeConfig = DTEdgeConfig()) -> torch.Tensor:
     """Network input (`Detect_OBB.py:87-133`): BGR uint8 [B, H, W, 3] ->
-    float32 NCHW [B, C, H, W] in 0..255; 3ch is RGB, 4ch is RGB + DT-Edge."""
+    float32 [B, C, H, W] in 0..255, in NHWC memory order (channels-last
+    strides); 3ch is RGB, 4ch is RGB + DT-Edge."""
     rgb = bgr.flip(-1).to(torch.float32)
     if out_channels == 4:
         dt = dt_edge_channel(bgr, cfg).to(torch.float32)
         rgb = torch.cat([rgb, dt[..., None]], dim=-1)
     elif out_channels != 3:
         raise ValueError(f"channels must be 3 or 4, got {out_channels}")
-    return rgb.permute(0, 3, 1, 2).contiguous()
+    return rgb.permute(0, 3, 1, 2)

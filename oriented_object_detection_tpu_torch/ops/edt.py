@@ -19,30 +19,20 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
-import shutil
 
 import numpy as np
 import torch
 
-from ..utils.build import build_shared_library
+from ..utils.build import (NVCC_FLAGS, build_shared_library, launch, nvcc,
+                           stream)
 
 INF = 1e9
 KERNEL_SOURCE = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc", "edt.cu")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
 # a block's shared-memory limit on Hopper: pass 2 stages its rows there
 MAX_SMEM_BYTES = 232448
 
 LAUNCHES = {"edt_pass1_columns": 0, "edt_pass2_rows": 0}
-
-
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the EDT kernels build with the "
-                           "CUDA toolkit's nvcc")
-    return path
 
 
 @functools.cache
@@ -50,7 +40,7 @@ def kernel_library() -> ctypes.CDLL:
     """Build ``csrc/edt.cu`` with nvcc for sm_90a (first call only) and
     bind its launchers."""
     lib = build_shared_library("edt", [KERNEL_SOURCE],
-                               [_nvcc()] + NVCC_FLAGS, timeout=300)
+                               [nvcc()] + NVCC_FLAGS, timeout=300)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.edt_pass1_columns_launch.restype = ci
     lib.edt_pass1_columns_launch.argtypes = [vp, vp, ci, ci, ci, vp]
@@ -59,15 +49,6 @@ def kernel_library() -> ctypes.CDLL:
     lib.edt_pass2_rows_smem_bytes.restype = ctypes.c_size_t
     lib.edt_pass2_rows_smem_bytes.argtypes = [ci]
     return lib
-
-
-def _check(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 # ---------------------------------------------------------------------------
@@ -105,9 +86,8 @@ def edt_pass1_columns(mask: torch.Tensor) -> torch.Tensor:
     B, H, W = mask.shape
     mask = mask.contiguous()
     out = torch.empty(mask.shape, dtype=torch.float32, device=mask.device)
-    _check(kernel_library().edt_pass1_columns_launch(
-        mask.data_ptr(), out.data_ptr(), B, H, W, _stream(mask)),
-        "edt_pass1_columns")
+    launch("edt_pass1_columns", kernel_library().edt_pass1_columns_launch,
+           mask.data_ptr(), out.data_ptr(), B, H, W, stream(mask))
     LAUNCHES["edt_pass1_columns"] += 1
     return out
 
@@ -152,9 +132,8 @@ def edt_pass2_rows(d0: torch.Tensor) -> torch.Tensor:
                          f"{MAX_SMEM_BYTES} a block can have")
     d0 = d0.contiguous()
     out = torch.empty_like(d0)
-    _check(kernel_library().edt_pass2_rows_launch(
-        d0.data_ptr(), out.data_ptr(), N, W, _stream(d0)),
-        "edt_pass2_rows")
+    launch("edt_pass2_rows", kernel_library().edt_pass2_rows_launch,
+           d0.data_ptr(), out.data_ptr(), N, W, stream(d0))
     LAUNCHES["edt_pass2_rows"] += 1
     return out
 

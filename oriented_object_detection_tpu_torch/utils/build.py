@@ -1,10 +1,16 @@
-"""Build a shared library from sources at first use and load it.
+"""Build a shared library from sources at first use, load it, and call the
+kernel launchers it exports.
 
 The library lands in the package's ``_build/`` directory under a name that
 carries a hash of its sources and command, so an edited source never serves
 a stale binary. The compiler writes to a temporary name that is renamed into
 place, so a concurrent process never opens a half-written file; no lock is
 taken, so nothing can wait forever on one left behind.
+
+The port's CUDA kernels (``csrc/*.cu``) build with ``nvcc()`` and
+``NVCC_FLAGS`` into a library with a plain C interface, bound through
+ctypes; ``launch`` calls one of its launchers on a tensor's current stream
+(``stream``) and raises on a CUDA error.
 """
 
 from __future__ import annotations
@@ -12,10 +18,15 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import shutil
 import subprocess
+
+import torch
 
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "_build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 
 def build_shared_library(name: str, sources: list[str], command: list[str],
@@ -44,3 +55,33 @@ def build_shared_library(name: str, sources: list[str], command: list[str],
             if os.path.exists(tmp):
                 os.remove(tmp)
     return ctypes.CDLL(out)
+
+
+def nvcc() -> str:
+    """The CUDA toolkit's nvcc; raises if there is none."""
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the port's CUDA kernels build "
+                           "with the CUDA toolkit's nvcc")
+    return path
+
+
+def stream(t: torch.Tensor) -> int:
+    """The handle of ``t``'s device's current stream, for a launcher."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def launch(name: str, launcher, *args) -> None:
+    """Call the ctypes ``launcher`` of kernel ``name`` with ``args``;
+    raise if it returns a CUDA error. While a ``torch.profiler`` collects,
+    the call is an operator named ``name`` on its timeline: the profiler
+    links a kernel to the operator that launched it, and a launch from
+    outside any operator would be linked to none, so its time would fall
+    outside the caller's spans."""
+    if torch._C._autograd._profiler_enabled():
+        with torch._C._profiler._RecordFunctionFast(name):
+            err = launcher(*args)
+    else:
+        err = launcher(*args)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
