@@ -1,17 +1,16 @@
-"""What both detection drivers share: the program's detector built from a
-configuration, spans around its layers for the traced run, the pool of
-seeded maps, and the check of a sample of the window's answers against
-the plain reference."""
+"""What both detection drivers share: the program's detector, the pool of
+seeded maps with their FLOPs, and the check of a sample of the window's
+answers against the plain reference; the configuration's architecture
+module (``archs/<model>.py``) builds the detector and the reference
+models and counts the FLOPs."""
 
 from __future__ import annotations
 
-import os
 from dataclasses import dataclass, field
 
 import torch
 
 from . import compare, synth
-from . import trace as TR
 from ..reference import detect as RD
 
 # rows below this confidence are left out of the check on both sides; the
@@ -42,66 +41,24 @@ def reference_config(cfg: dict) -> dict:
 
 
 def build_detector(cell, device):
-    """The program's ``TiledDetector`` for the configuration, every knob
-    the configuration states passed through."""
-    from oriented_object_detection_tpu_torch.infer.pipeline import (
-        build_detector as build)
-
-    cfg = cell.config
-    triples = [(s["tile_size"], s["overlap"],
-                os.path.join(cell.root, s["checkpoint"]))
-               for s in cfg["scales"]]
-    fields = {k: cfg[k] for k in (
-        "calculate_metrics", "conf_thr_metrics", "conf_thr_predict",
-        "engine_nms_iou", "merge_iou", "apply_border_filter", "margin_128",
-        "margin_416", "max_det_per_tile", "pre_topk", "compute_dtype")}
-    return build(triples, channels=cfg["channels"],
-                 model_scale=cfg["model_scale"], device=device, **fields)
+    """The program's detector, as the configuration's architecture builds
+    it."""
+    return cell.arch.program_detector(cell, device)
 
 
-def add_spans(det) -> None:
-    """Spans around each scale's forward (hooks on its model) and around
-    the decode and the NMS, for the traced run."""
-    from oriented_object_detection_tpu_torch.models import decode as D
-
-    for ts, model in det.models.items():
-        def pre(mod, inp, _ts=ts):
-            mod._obb_span = torch.profiler.record_function(
-                f"{TR.SPAN_PREFIX}forward_{_ts}")
-            mod._obb_span.__enter__()
-
-        def post(mod, inp, out):
-            mod._obb_span.__exit__(None, None, None)
-
-        model.register_forward_pre_hook(pre)
-        model.register_forward_hook(post)
-    if not getattr(D, "_obb_wrapped", False):
-        for name in ("decode_raw", "postprocess_batch"):
-            inner = getattr(D, name)
-
-            def wrapped(*a, _inner=inner, _name=name, **k):
-                with TR.span(_name):
-                    return _inner(*a, **k)
-
-            setattr(D, name, wrapped)
-        D._obb_wrapped = True
-
-
-def map_flops(cfg: dict, h: int, w: int) -> float:
+def map_flops(cell, h: int, w: int) -> float:
     """Forward FLOPs of one map: its tiles at each scale, each a full tile
     of the reference model."""
-    from . import flops as FL
-
+    cfg = cell.config
     return sum(len(synth.tile_grid(h, w, s["tile_size"], s["overlap"]))
-               * FL.forward_flops(cfg["model_scale"], s["tile_size"],
-                                  cfg["nc"], cfg["channels"])
+               * cell.arch.forward_flops(cfg, s["tile_size"])
                for s in cfg["scales"])
 
 
 def make_pool(sess: Session, shapes: list) -> None:
     sess.pool = [synth.synthetic_map(sess.seed, i, h, w, sess.device)[0]
                  for i, (h, w) in enumerate(shapes)]
-    sess.flops_per_map = [map_flops(sess.cell.config, *m.shape[:2])
+    sess.flops_per_map = [map_flops(sess.cell, *m.shape[:2])
                           for m in sess.pool]
 
 
@@ -117,7 +74,8 @@ def release(sess: Session) -> None:
 def reference(sess: Session, precision: str = "float32") -> list:
     """The reference's results over the sampled answers' maps."""
     cfg = reference_config(sess.cell.config)
-    models = RD.load_models(cfg, sess.cell.root, sess.device, precision)
+    models = sess.cell.arch.reference_models(cfg, sess.cell.root,
+                                             sess.device, precision)
     done = {}
     for i in sess.sample:
         p = sess.results[i][0]

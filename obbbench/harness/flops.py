@@ -3,9 +3,11 @@
 FLOPs come from ``torch.utils.flop_counter.FlopCounterMode`` over the
 benchmark's frozen reference model on the meta device (convolutions and
 matrix products, two a multiply-add), one tile at a time, so a change to
-the program's implementation cannot move the denominator. A training
-step counts three forwards (forward, and the two products of the
-backward)."""
+the program's implementation cannot move the denominator. This is
+YOLO11-OBB's count, which ``archs/yolo11_obb.py`` and the training
+driver read; another architecture counts its own reference model in its
+module. A training step counts three forwards (forward, and the two
+products of the backward)."""
 
 from __future__ import annotations
 

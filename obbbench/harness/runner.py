@@ -64,13 +64,12 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
     setup_s = time.perf_counter() - t_start
     tr = None
     if trace:
-        if hasattr(drv, "trace_spans"):
-            drv.trace_spans(sess)
         from torch.profiler import ProfilerActivity, profile
 
         acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
                                          if on_card else [])
-        with TR.program_stages() as stages, profile(activities=acts) as prof:
+        stages = TR.program_stages()
+        with profile(activities=acts) as prof:
             with TR.span("window"):
                 record = drv.window(sess, seconds,
                                     cell.workload["trace_units"])
@@ -82,9 +81,6 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
     _sync(device)
     window_peak = torch.cuda.max_memory_allocated() if on_card else 0
     record.update(setup_s=setup_s, peak_bytes=window_peak)
-    found = forbidden_modules()
-    if found:
-        raise SystemExit(f"modules of JAX loaded in this process: {found}")
 
     lat = record.get("latency_s")
     log(f"[obbbench] window {record['window_s']:.3f} s, {record['units']} "
@@ -93,7 +89,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
     metrics = {}
     group = "layer_metrics" if trace else "end_to_end"
     for m in (cell.per_layer if trace else cell.end_to_end):
-        mod = cell.metric_module(group, m["name"])
+        mod = cell.module(group, m["name"])
         v = mod.value(tr, record, cell) if trace else mod.value(record, cell)
         if v is not None:
             metrics[m["name"]] = {"value": v, "unit": m["unit"]}
@@ -119,4 +115,8 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
     for k, c in checks.items():
         log(f"check {k} = {c['value']!r} limit {c['limit']!r}")
     result["checks"] = checks
+    # last, once the metric modules, the release and the reference have run
+    found = forbidden_modules()
+    if found:
+        raise SystemExit(f"modules of JAX loaded in this process: {found}")
     return result

@@ -1,12 +1,15 @@
 """What a run reads by name: ``BENCHMARK.json`` at the checkout's root, a
 cell's file ``workloads/<cell>.json``, its configuration's file
-``configs/<config>.json``, its traffic driver ``traffic/<kind>.py``, and
-one module a metric: ``end_to_end/<metric>.py`` and
-``layer_metrics/<metric>.py``. Adding a cell, a configuration or a metric
-adds files and entries; no file here changes."""
+``configs/<config>.json``, its traffic driver ``traffic/<kind>.py``, the
+configuration's architecture ``archs/<model>.py`` (the configuration's
+``model`` lowercased, ``-`` as ``_``), and one module a metric:
+``end_to_end/<metric>.py`` and ``layer_metrics/<metric>.py``. Adding a
+cell, a configuration, an architecture or a metric adds files and
+entries; no file here changes."""
 
 from __future__ import annotations
 
+import hashlib
 import importlib.util
 import json
 import os
@@ -22,8 +25,13 @@ def read_json(path: str) -> dict:
         return json.load(f)
 
 
-def load_module(path: str, name: str):
-    """The module in file ``path`` under the name ``name``."""
+def load_module(path: str):
+    """The module in file ``path``, loaded once a process: its name holds
+    a digest of the path, so files of one name in two folders stay two
+    modules."""
+    path = os.path.abspath(path)
+    stem = os.path.basename(path)[:-len(".py")].replace(".", "_")
+    name = f"obbbench_{hashlib.sha1(path.encode()).hexdigest()[:12]}_{stem}"
     if name in sys.modules:
         return sys.modules[name]
     if not os.path.exists(path):
@@ -44,17 +52,28 @@ class Cell:
     end_to_end: list = field(default_factory=list)
     per_layer: list = field(default_factory=list)
     root: str = ROOT
-    bench_dir: str = BENCH_DIR
+    data_dir: str | None = None
+
+    def module(self, group: str, name: str):
+        """``<group>/<name>.py``, from the test's data directory where it
+        holds that file, else from the benchmark's folder."""
+        path = os.path.join(BENCH_DIR, group, f"{name}.py")
+        if self.data_dir:
+            own = os.path.join(self.data_dir, group, f"{name}.py")
+            path = own if os.path.exists(own) else path
+        return load_module(path)
 
     @property
     def driver(self):
-        kind = self.workload["driver"]
-        return load_module(os.path.join(self.bench_dir, "traffic",
-                                        f"{kind}.py"), f"obbbench_traffic_{kind}")
+        return self.module("traffic", self.workload["driver"])
 
-    def metric_module(self, group: str, name: str):
-        return load_module(os.path.join(self.bench_dir, group, f"{name}.py"),
-                           f"obbbench_{group}_{name.replace('.', '_')}")
+    @property
+    def arch(self):
+        """The architecture module: ``program_detector(cell, device)``,
+        ``reference_models(cfg, root, device, precision)`` and
+        ``forward_flops(cfg, tile)``."""
+        return self.module(
+            "archs", self.config["model"].lower().replace("-", "_"))
 
 
 def _applies(metric: dict, cell: str, reported: set | None) -> bool:
@@ -68,7 +87,8 @@ def load_cell(name: str, root: str = ROOT, data_dir: str | None = None
     """The cell ``name`` as ``BENCHMARK.json`` lists it, with its cell and
     configuration files. ``root`` is the checkout (the checkpoints are
     relative to it); ``data_dir``, when a test gives one, holds a
-    ``BENCHMARK.json``, ``workloads/`` and ``configs/`` of its own."""
+    ``BENCHMARK.json``, ``workloads/`` and ``configs/`` of its own, and may
+    hold modules of its own (``archs/``, ``traffic/``, ...)."""
     bench = read_json(os.path.join(data_dir or root, "BENCHMARK.json"))
     entry = {w["name"]: w for w in bench["workloads"]}.get(name)
     if entry is None:
@@ -86,4 +106,4 @@ def load_cell(name: str, root: str = ROOT, data_dir: str | None = None
     e2e = [m for m in bench["end_to_end"] if _applies(m, name, None)]
     reported = {m["name"] for m in e2e}
     per_layer = [m for m in bench["per_layer"] if _applies(m, name, reported)]
-    return Cell(name, wl, cfg, e2e, per_layer, root)
+    return Cell(name, wl, cfg, e2e, per_layer, root, data_dir=data_dir)

@@ -8,9 +8,9 @@ queued (the drain), so the steady window runs from the end of the first
 wait to the start of the last. Its groups are those whose dispatch starts
 inside it.
 
-A span nested in a span of the same name (the benchmark's own stage
-wrapper around the program's stage span) is folded into the span that
-holds it, so each wait, dispatch and merge counts once.
+A span nested in a span of the same name is folded into the span that
+holds it, so each wait, dispatch and merge counts once however the
+spans nest.
 """
 
 from __future__ import annotations

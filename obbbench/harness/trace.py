@@ -1,8 +1,8 @@
 """The traced run's record: ``torch.profiler`` over the window, kept in
 memory, reduced to device kernels (name, start, end, the span that held
-their launch) and host spans (the benchmark's ``record_function`` ranges
-and the program's stage timers), the device's busy time, and the
-breakdown of the result line.
+their launch), host spans (the program's own ``obb/`` ranges and the
+benchmark's window) and the program's stage totals, the device's busy
+time, and the breakdown of the result line.
 
 A kernel belongs to the innermost span whose host interval holds the
 start of the operator that launched it (the profiler links them by
@@ -51,7 +51,7 @@ class Kernel:
     name: str
     start: float      # seconds on the trace's clock
     end: float
-    span: str         # innermost benchmark or stage span of its launch
+    span: str         # innermost ``obb/`` span of its launch
 
     @property
     def seconds(self) -> float:
@@ -139,25 +139,13 @@ def span(name: str):
         yield
 
 
-@contextlib.contextmanager
 def program_stages():
-    """Each stage timer of the program (``utils/profiling.timed``) also
-    opens a span named after its stage, and the stage totals restart."""
+    """The program's stage timers (``utils/profiling.timed``, which open
+    their own ``obb/stage/<name>`` spans), their totals restarted."""
     from oriented_object_detection_tpu_torch.utils import profiling as P
 
-    inner = P.timed
-
-    @contextlib.contextmanager
-    def timed(name):
-        with span("stage/" + name), inner(name):
-            yield
-
     P.reset()
-    P.timed = timed
-    try:
-        yield P
-    finally:
-        P.timed = inner
+    return P
 
 
 def _device_types():

@@ -67,7 +67,7 @@ def test_detect_folder_readers(cell):
     c = cell("dual_folder_sheets")
     tr = canned_detect_trace()
     rec = {"mpix": [16.777216, 16.777216], "flops": 2 * 28.8e12, "units": 2}
-    read = {m["name"]: c.metric_module("layer_metrics", m["name"]).value(
+    read = {m["name"]: c.module("layer_metrics", m["name"]).value(
         tr, rec, c) for m in c.per_layer}
     mpix = 2 * 16.777216
     assert read["decode_nms_ms.detect_folder"] == pytest.approx(60 / mpix)
@@ -83,7 +83,7 @@ def test_detect_single_readers(cell):
     c = cell("dual_single_maps")
     tr = canned_detect_trace()
     rec = {"mpix": [0.72, 1.09], "flops": 3e12, "units": 2}
-    read = {m["name"]: c.metric_module("layer_metrics", m["name"]).value(
+    read = {m["name"]: c.module("layer_metrics", m["name"]).value(
         tr, rec, c) for m in c.per_layer}
     assert read["dispatch_ms.detect_single"] == pytest.approx(150.0)
     assert read["idle_share.detect_single"] == pytest.approx(25.0)
@@ -104,7 +104,7 @@ def test_train_readers(cell):
     tr = TR.Trace(kernels=kernels, spans=spans, window=(0.0, 0.5), units=2)
     rec = {"steps": 2, "loader_s": [0.02, 0.02], "flops": 2 * 4.1e12,
            "units": 2}
-    read = {m["name"]: c.metric_module("layer_metrics", m["name"]).value(
+    read = {m["name"]: c.module("layer_metrics", m["name"]).value(
         tr, rec, c) for m in c.per_layer}
     assert read["loader_ms.train"] == pytest.approx(20.0)
     assert read["elementwise_ms.train"] == pytest.approx(75.0)
@@ -119,7 +119,7 @@ def test_readers_find_nothing_and_return_nothing(cell):
     for name in ("dual_folder_sheets", "dual_single_maps", "train416_b16"):
         c = cell(name)
         for m in c.per_layer:
-            v = c.metric_module("layer_metrics", m["name"]).value(
+            v = c.module("layer_metrics", m["name"]).value(
                 empty, {"units": 0, "mpix": [], "steps": 0, "loader_s": [],
                         "flops": 0}, c)
             assert v is None, m["name"]
@@ -130,7 +130,7 @@ def test_end_to_end_metrics(cell):
     rec = {"window_s": 2.0, "units": 4, "mpix": [1.0, 1.0, 1.0, 1.0],
            "latency_s": [float(i) for i in range(1, 21)],
            "peak_bytes": 2 ** 31, "setup_s": 30.0}
-    read = {m["name"]: c.metric_module("end_to_end", m["name"]).value(rec, c)
+    read = {m["name"]: c.module("end_to_end", m["name"]).value(rec, c)
             for m in c.end_to_end}
     assert read == {"detect_mpix_per_s": 2.0,
                     "detect_map_p95_s": pytest.approx(19.05),
@@ -138,7 +138,7 @@ def test_end_to_end_metrics(cell):
     t = cell("train416_b16")
     rec = {"window_s": 3.0, "units": 12, "steps": 12, "peak_bytes": 2 ** 30,
            "setup_s": 5.0}
-    read = {m["name"]: t.metric_module("end_to_end", m["name"]).value(rec, t)
+    read = {m["name"]: t.module("end_to_end", m["name"]).value(rec, t)
             for m in t.end_to_end}
     assert read == {"train_step_s": 0.25, "peak_mem_gib": 1.0,
                     "setup_s": 5.0}

@@ -40,10 +40,25 @@ def test_cell_loads_by_name(full, name):
     assert "setup_s" in names and len(names) >= 2
     assert cell.per_layer
     for m in cell.end_to_end:
-        assert callable(cell.metric_module("end_to_end", m["name"]).value)
+        assert callable(cell.module("end_to_end", m["name"]).value)
     for m in cell.per_layer:
-        assert callable(cell.metric_module("layer_metrics", m["name"]).value)
+        assert callable(cell.module("layer_metrics", m["name"]).value)
         assert m["moves"] in names
+
+
+@pytest.mark.parametrize("kind,name", [
+    (kind, e["name"]) for kind in ("configs", "workloads") for e in ALL[kind]])
+def test_every_cell_and_config_has_a_tiny_file(kind, name):
+    """Each cell and configuration, held-back ones too, has its size for
+    the CPU tests, which changes only values the real file has."""
+    small = tiny.sizes(kind, name)
+    real = spec.read_json(
+        os.path.join(spec.ROOT, {c["name"]: c["file"]
+                                 for c in ALL["configs"]}[name])
+        if kind == "configs" else
+        os.path.join(spec.BENCH_DIR, "workloads", f"{name}.json"))
+    assert small and set(small) <= set(real)
+    assert set(small.get("params", {})) <= set(real.get("params", {}))
 
 
 def test_every_config_file_is_under_paths():
@@ -89,9 +104,31 @@ def test_added_metric_is_found_as_a_file(tmp_path):
     (tmp_path / "layer_metrics" / "new_metric.detect_folder.py").write_text(
         "def value(trace, record, cell):\n    return 42.0\n")
     cell = spec.load_cell("dual_folder_sheets")
-    cell.bench_dir = str(tmp_path)
-    mod = cell.metric_module("layer_metrics", "new_metric.detect_folder")
+    cell.data_dir = str(tmp_path)
+    mod = cell.module("layer_metrics", "new_metric.detect_folder")
     assert mod.value(None, {}, cell) == 42.0
+
+
+@pytest.mark.parametrize("own_first", [False, True])
+def test_a_data_directory_module_is_its_own(tmp_path, own_first):
+    """A module of one group and name, from the benchmark's folder and
+    from a data directory, loads as two modules in one process, in either
+    order, each from its own file."""
+    name = "detect_mpix_per_s"
+    (tmp_path / "end_to_end").mkdir()
+    (tmp_path / "end_to_end" / f"{name}.py").write_text(
+        "def value(record, cell):\n    return -1.0\n")
+    bench_cell = spec.load_cell("dual_folder_sheets")
+    own_cell = spec.load_cell("dual_folder_sheets")
+    own_cell.data_dir = str(tmp_path)
+    order = [own_cell, bench_cell] if own_first else [bench_cell, own_cell]
+    mods = {id(c): c.module("end_to_end", name) for c in order}
+    own, theirs = mods[id(own_cell)], mods[id(bench_cell)]
+    assert own is not theirs
+    assert own.__file__ == str(tmp_path / "end_to_end" / f"{name}.py")
+    assert theirs.__file__ == os.path.join(spec.BENCH_DIR, "end_to_end",
+                                           f"{name}.py")
+    assert own.value({}, own_cell) == -1.0
 
 
 def test_metric_without_workloads_follows_its_end_to_end_metric(tmp_path):

@@ -29,14 +29,14 @@ def cell(tmp_path_factory):
 
 
 def read(c, tr, rec) -> dict:
-    return {n: c.metric_module("layer_metrics", f"{n}.detect_folder").value(
+    return {n: c.module("layer_metrics", f"{n}.detect_folder").value(
         tr, rec, c) for n in READERS}
 
 
 def canned_stream(waits: int = 3) -> TR.Trace:
     """Three groups of a stream, chunk 1, over a 10 s window. Each stage
     span and wait is doubled by a span of the same name nested inside it,
-    as the benchmark's stage wrapper doubles the program's. The steady
+    which the readers fold into one. The steady
     window is 2.0-5.7 s; the card is idle in it at 2.0-2.2 (the refill of
     dispatch 1), 4.4-4.7 (0.1 s in wait 1, 0.2 s in dispatch 2) and
     5.3-5.5 (in merge 1 and fusion 1)."""
@@ -108,31 +108,32 @@ def test_outermost_folds_nested_spans_of_a_name():
     assert ST.intersect([(0, 2), (3, 4)], [(1, 3.5)]) == [(1, 2), (3, 3.5)]
 
 
-def test_cpu_stream_gives_the_program_waits(tmp_path, monkeypatch):
+def test_cpu_stream_gives_the_program_waits(tmp_path):
     """The small cell's traced window, run as the runner runs it, on the
-    CPU: ``reduce`` finds the program's wait spans (each inside the
-    benchmark's wrapper of the same name) and ``wait_ms`` reads them; the
-    device readers find no kernels and give nothing."""
-    from oriented_object_detection_tpu_torch.models import decode as D
-
-    for name in ("decode_raw", "postprocess_batch"):
-        monkeypatch.setattr(D, name, getattr(D, name))
-    monkeypatch.setattr(D, "_obb_wrapped", False, raising=False)
+    CPU: ``reduce`` finds the program's wait spans, one a group, and
+    ``wait_ms`` reads them; the device readers find no kernels and give
+    nothing."""
     c = spec.load_cell("dual_folder_sheets", spec.ROOT,
                        tiny.make(str(tmp_path)))
     drv = c.driver
     sess = drv.setup(c, 2 ** 31 + 17, CPU)
-    drv.trace_spans(sess)
-    with TR.program_stages() as stages, \
-            profile(activities=[ProfilerActivity.CPU]) as prof:
+    stages = TR.program_stages()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
         with TR.span("window"):
             record = drv.window(sess, 600.0, c.workload["trace_units"])
     tr = TR.reduce(prof, {k: v["total_s"] for k, v in
                           stages.report().items()}, record["units"])
     groups = c.workload["trace_units"]
-    assert sum(n == ST.WAIT for n, *_ in tr.spans) == 2 * groups
+    assert sum(n == ST.WAIT for n, *_ in tr.spans) == groups
     assert len(ST.outermost(tr, lambda n: n == ST.WAIT)) == groups
     assert stages.report()["detect/wait"]["calls"] == groups
+    # the program opens every span the readers read, each once
+    for name in ("obb/forward_128", "obb/forward_416", "obb/decode_raw",
+                 "obb/postprocess_batch", "obb/tiles_128",
+                 "obb/stage/detect/fusion"):
+        n = sum(s[0] == name for s in tr.spans)
+        assert n > 0, name
+        assert len(ST.outermost(tr, lambda s, _n=name: s == _n)) == n, name
     got = read(c, tr, record)
     assert got["wait_ms"] is not None and got["wait_ms"] >= 0
     assert got["steady_idle_share"] is None

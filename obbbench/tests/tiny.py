@@ -1,7 +1,12 @@
 """The cells as the tests run them: ``BENCHMARK.json`` merged with the
 cells held back from it (``obbbench/held_back.json``), at their own sizes
 or at a size the CPU holds (the YOLO11n-OBB checkpoints, small maps, a
-few tiles; every other value, limits and knobs, is the real cell's)."""
+few tiles; every other value, limits and knobs, is the real cell's).
+
+The small values are files, one a cell and one a configuration:
+``tiny/workloads/<cell>.json`` (``params`` merged into the cell's, any
+other key replacing the cell's) and ``tiny/configs/<config>.json`` (keys
+replacing the configuration's)."""
 
 from __future__ import annotations
 
@@ -10,23 +15,7 @@ import os
 
 from obbbench.harness import spec
 
-SIZES = {
-    "dual_folder_sheets": {"params": {"height": 640, "width": 640,
-                                      "pool": 2, "warm_maps": 2}},
-    "dual_single_maps": {"params": {"shapes": [[540, 500], [620, 580]],
-                                    "pool": 4}, "check_maps": 3},
-    "train416_b16": {"params": {"maps": 2, "map_size": 256}},
-}
-CONFIGS = {
-    "yolo11x_obb_dual_bf16": {"model_scale": "n", "scales": [
-        {"tile_size": 128, "overlap": 30,
-         "checkpoint": "assets/bench_ckpts/train128.ckpt"},
-        {"tile_size": 416, "overlap": 100,
-         "checkpoint": "assets/bench_ckpts/train416.ckpt"}]},
-    "yolo11x_obb_train416_bf16": {
-        "model_scale": "n", "tile_size": 128, "overlap": 30, "batch_size": 4,
-        "init_checkpoint": "assets/bench_ckpts/train128.ckpt"},
-}
+TINY = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tiny")
 
 
 def merged_bench() -> dict:
@@ -45,30 +34,57 @@ def merged_bench() -> dict:
     return bench
 
 
+def _first(*paths: str) -> str:
+    return next((p for p in paths if os.path.exists(p)), paths[-1])
+
+
+def tiny_file(kind: str, name: str, tmp: str | None = None) -> str:
+    """The tiny-size file of a cell (``kind`` "workloads") or a
+    configuration ("configs"): the test's own in ``tmp/tiny/`` where it
+    holds one, else the benchmark's."""
+    return _first(*([os.path.join(tmp, "tiny", kind, f"{name}.json")]
+                    if tmp else []),
+                  os.path.join(TINY, kind, f"{name}.json"))
+
+
+def sizes(kind: str, name: str, tmp: str | None = None) -> dict:
+    path = tiny_file(kind, name, tmp)
+    if not os.path.exists(path):
+        raise FileNotFoundError(
+            f"{kind[:-1]} {name!r} has no size the CPU holds: add "
+            f"{os.path.relpath(path, spec.ROOT)} (see obbbench/README.md)")
+    return spec.read_json(path)
+
+
 def make(tmp: str, small: bool = True, **config_changes) -> str:
-    """A data directory under ``tmp`` with the merged ``BENCHMARK.json``
-    and every cell and configuration, small unless ``small`` is false;
-    ``config_changes`` go into every configuration."""
+    """A data directory ``tmp`` with the merged ``BENCHMARK.json`` and
+    every cell and configuration, small unless ``small`` is false;
+    ``config_changes`` go into every configuration. What a test put in
+    ``tmp`` beforehand (``BENCHMARK.json``, ``configs/``, ``workloads/``,
+    ``tiny/``) is read before the benchmark's own files."""
     for d in ("configs", "workloads"):
         os.makedirs(os.path.join(tmp, d), exist_ok=True)
-    bench = merged_bench()
-    with open(os.path.join(tmp, "BENCHMARK.json"), "w") as f:
+    own_bench = os.path.join(tmp, "BENCHMARK.json")
+    bench = (spec.read_json(own_bench) if os.path.exists(own_bench)
+             else merged_bench())
+    with open(own_bench, "w") as f:
         json.dump(bench, f)
     for c in bench["configs"]:
-        cfg = spec.read_json(os.path.join(spec.ROOT, c["file"]))
+        path = os.path.join(tmp, "configs", f"{c['name']}.json")
+        cfg = spec.read_json(_first(path, os.path.join(spec.ROOT, c["file"])))
         if small:
-            cfg.update(CONFIGS[c["name"]])
+            cfg.update(sizes("configs", c["name"], tmp))
         cfg.update(config_changes)
-        with open(os.path.join(tmp, "configs", f"{c['name']}.json"), "w") as f:
+        with open(path, "w") as f:
             json.dump(cfg, f)
     for w in bench["workloads"]:
-        wl = spec.read_json(os.path.join(spec.BENCH_DIR, "workloads",
-                                         f"{w['name']}.json"))
+        path = os.path.join(tmp, "workloads", f"{w['name']}.json")
+        wl = spec.read_json(_first(path, os.path.join(
+            spec.BENCH_DIR, "workloads", f"{w['name']}.json")))
         if small:
-            wl["params"].update(SIZES[w["name"]]["params"])
-            wl.update({k: v for k, v in SIZES[w["name"]].items()
-                       if k != "params"})
-        with open(os.path.join(tmp, "workloads", f"{w['name']}.json"),
-                  "w") as f:
+            small_wl = sizes("workloads", w["name"], tmp)
+            wl["params"].update(small_wl.get("params", {}))
+            wl.update({k: v for k, v in small_wl.items() if k != "params"})
+        with open(path, "w") as f:
             json.dump(wl, f)
     return tmp

@@ -31,10 +31,6 @@ def setup(cell, seed: int, device):
     return sess
 
 
-def trace_spans(sess) -> None:
-    DT.add_spans(sess.det)
-
-
 def window(sess, seconds: float, max_units: int | None) -> dict:
     n_max = max_units or 1_000_000
     sess.results.clear()
