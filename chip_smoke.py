@@ -39,6 +39,15 @@ bounds hold as before:
              epilogue kernel, and the epilogues' device time beside
              the plain version's, the library's and the bytes bound; one
              ``detect_image`` launching it once a fused ConvBN a forward.
+   yolo12  - YOLO12x-OBB (seeded random weights) in the channels-last
+             bf16 detector at 1024/200: the epilogue kernel bit-equal to
+             its plain version at channel counts no multiple of 8 (460,
+             307, 12); on a sheet's 25 tiles each fused ConvBN's epilogue
+             bit-equal and launched once (211 a forward), ``AREA_ATTN``
+             (16 calls, 40 areas, 40,960 tokens a tile), no cuDNN layout
+             transpose, the forward's device ms and the kernels of its
+             ``forward_area_attn`` spans with their ms (which attention
+             backend ran), and one ``detect_image``.
 5. slice   - runs the 4-channel 416/100 detector on the committed
              ``train416_4ch.ckpt`` (YOLO11n-OBB) over a seeded synthetic
              1024x1024 map (16 tiles): both kernels must launch, the
@@ -795,17 +804,17 @@ SHEET_TILES = {128: 1764, 416: 169}
 LAYOUT_KERNELS = ("nchwToNhwc", "nhwcToNchw")
 
 
-def sheet_chunk(torch, det, img, ts: int):
+def sheet_chunk(torch, det, img, ts: int, n: int | None = None):
     """The network input of a 4096x4096 sheet's chunk at tile size ``ts``
-    (``SHEET_TILES[ts]`` tiles: those of ``img``, repeated), cast and laid
-    out as ``TiledDetector._tile_rows`` does."""
+    (``n`` tiles, by default ``SHEET_TILES[ts]``: those of ``img``,
+    repeated), cast and laid out as ``TiledDetector._tile_rows`` does."""
     from oriented_object_detection_tpu_torch.ops import dtedge as DT
     from oriented_object_detection_tpu_torch.ops import tiling as T
 
     ov = next(sc.overlap for sc in det.cfg.scales if sc.tile_size == ts)
     grid = T.inference_tile_grid(*img.shape[:2], ts, ov)
     tiles = T.extract_tiles(torch.from_numpy(img).cuda(), grid, ts)
-    tiles = tiles[torch.arange(SHEET_TILES[ts], device=tiles.device)
+    tiles = tiles[torch.arange(n or SHEET_TILES[ts], device=tiles.device)
                   % len(tiles)]
     return (DT.build_multich(tiles, det.cfg.channels) / 255.0).to(
         det.dtype, memory_format=det.layout)
@@ -864,11 +873,12 @@ def epilogue_times(torch, TL, EP, model, x) -> dict:
     return out
 
 
-def kernels_in_span(prof, span: str) -> dict:
+def kernels_in_span(prof, span: str, ms: bool = False) -> dict:
     """Kernels by name whose launching operator starts inside the host
     span ``span`` (a ``record_function`` range) of a finished profile: the
     rule by which the benchmark's traced runs give a kernel to a span (the
-    profiler links a kernel to its operator by correlation id)."""
+    profiler links a kernel to its operator by correlation id). Their
+    launches by name, or with ``ms`` their device milliseconds."""
     from torch.autograd import DeviceType
 
     events = prof.profiler.kineto_results.events()
@@ -883,7 +893,8 @@ def kernels_in_span(prof, span: str) -> dict:
         if e.device_type() == DeviceType.CUDA and not e.name() == span:
             t = ops.get(e.linked_correlation_id())
             if t is not None and any(a <= t <= b for a, b in inside):
-                count[e.name()] = count.get(e.name(), 0) + 1
+                count[e.name()] = count.get(e.name(), 0) + (
+                    e.duration_ns() / 1e6 if ms else 1)
     return count
 
 
@@ -1014,6 +1025,130 @@ def phase_epilogue(torch, img) -> dict:
           "detect_image_launches": {k: v for k, v in out.items()
                                     if k.endswith("_launches")}})
     return out
+
+
+# YOLO12x-OBB at the DOTA split: one forward holds a 4096x4096 sheet's tiles
+YOLO12_TILE, YOLO12_OVERLAP, YOLO12_SHEET_TILES = 1024, 200, 25
+# channel counts whose pixel rows are no multiple of 16 bytes: YOLO12's MLP
+# at x (460) and at l (307), a head's class conv (12)
+EPILOGUE_ODD_CHANNELS = (460, 307, 12)
+# names of the attention kernels of scaled_dot_product_attention's fused
+# backends (flash, memory-efficient, cuDNN)
+SDPA_FUSED = ("flash", "fmha", "attention", "cudnn", "mem_eff")
+
+
+def phase_yolo12(torch, img) -> dict:
+    """YOLO12x-OBB (seeded random weights, ``random_variables(...,
+    arch="yolo12")``) in the channels-last bf16 detector at 1024/200: the
+    epilogue kernel bit-equal to its plain version at channel counts that
+    are no multiple of 8 (its 8-, 4- and 2-byte vectors); on a sheet's 25
+    tiles, every fused ConvBN's epilogue bit-equal to its plain version and
+    launched once (211 a forward), ``AREA_ATTN`` (16 calls, 40 areas and
+    40,960 tokens a tile), no cuDNN layout transpose, the device time of
+    the forward and of its ``forward_area_attn`` spans by kernel, which
+    names the attention backend that ran; then one ``detect_image``."""
+    from oriented_object_detection_tpu_torch.config import (DetectConfig,
+                                                          ScaleConfig)
+    from oriented_object_detection_tpu_torch.infer.pipeline import (
+        TiledDetector, random_variables)
+    from oriented_object_detection_tpu_torch.models import layers as TL
+    from oriented_object_detection_tpu_torch.ops import epilogue as EP
+    from oriented_object_detection_tpu_torch.utils import profiling as P
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    odd = {}
+    for c in EPILOGUE_ODD_CHANNELS:
+        for dtype in (torch.bfloat16, torch.float32):
+            y = torch.randn(3, c, 17, 19, device="cuda", generator=gen).to(
+                dtype, memory_format=torch.channels_last)
+            bias = torch.randn(c, device="cuda", generator=gen)
+            for act in (True, False):
+                ref = EP.bias_silu_nhwc_plain(y.clone(), bias, act)
+                if not torch.equal(EP.bias_silu_nhwc(y.clone(), bias, act),
+                                   ref):
+                    raise AssertionError(f"bias_silu_nhwc {dtype} C={c} act "
+                                         f"{act} differs from its plain "
+                                         f"version")
+        odd[c] = "bit_equal"
+    ts = YOLO12_TILE
+    cfg = DetectConfig(scales=(ScaleConfig(ts, YOLO12_OVERLAP,
+                                           model_scale="x", arch="yolo12"),))
+    t0 = time.perf_counter()
+    det = TiledDetector(cfg, {ts: random_variables(12, "x", 3, seed=0,
+                                                   arch="yolo12")})
+    build_s = time.perf_counter() - t0
+    model = det.models[ts]
+    if det.layout != torch.channels_last or det.dtype != torch.bfloat16:
+        raise AssertionError(f"detector {det.layout} {det.dtype}")
+    fused = sum(isinstance(m, TL.ConvBN) and m.fused
+                for m in model.modules())
+    x = sheet_chunk(torch, det, img, ts, YOLO12_SHEET_TILES)
+    widths = set()
+
+    def checked(y, bias, act):
+        ref = EP.bias_silu_nhwc_plain(y.clone(), bias, act)
+        got = EP.bias_silu_nhwc(y, bias, act)
+        if not torch.equal(got, ref):
+            raise AssertionError(f"bias_silu_nhwc at {list(y.shape)} (act "
+                                 f"{act}) differs from its plain version")
+        widths.add(y.shape[1])
+        return got
+
+    before = EP.LAUNCHES["bias_silu_nhwc"]
+    attn0 = dict(TL.AREA_ATTN)
+    with torch.inference_mode(), epilogue_as(TL, checked):
+        model(x)
+    torch.cuda.synchronize()
+    launched = EP.LAUNCHES["bias_silu_nhwc"] - before
+    area = {k: TL.AREA_ATTN[k] - attn0[k] for k in attn0}
+    n = YOLO12_SHEET_TILES
+    if launched != fused or area != {"calls": 16, "areas": 40 * n,
+                                     "tokens": 40960 * n}:
+        raise AssertionError(f"{launched} epilogue launches for {fused} "
+                             f"fused ConvBNs; AREA_ATTN {area}")
+    row = {"tiles": n, "fused_convbn": fused, "epilogue_launches": launched,
+           "area_attn": area, "epilogue_bit_equal": True,
+           "odd_channel_counts_seen": sorted(c for c in widths if c % 8),
+           "build_s": build_s}
+    row["forward"] = forward_kernels(torch, model, x)
+    if row["forward"]["cudnn_transposes"]:
+        raise AssertionError(f"cuDNN layout transposes in the forward: "
+                             f"{row['forward']['cudnn_transposes']}")
+    with torch.inference_mode():
+        row["forward_ms"] = device_ms(lambda: model(x), reps=3)
+        model(x)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            model(x)
+            torch.cuda.synchronize()
+    span = P.SPAN_PREFIX + "forward_area_attn"
+    by_name = kernels_in_span(prof, span, ms=True)
+    launches = kernels_in_span(prof, span)
+    row["area_attn_ms"] = sum(by_name.values())
+    row["area_attn_kernels"] = [
+        {"name": k[:120], "ms": v, "launches": launches[k]}
+        for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])]
+    fused_sdpa = sorted({k[:120] for k in by_name
+                         if any(t in k.lower() for t in SDPA_FUSED)})
+    row["sdpa_backend"] = ("fused: " + "; ".join(fused_sdpa) if fused_sdpa
+                           else "math (matmul + softmax kernels)")
+    del x
+    before = EP.LAUNCHES["bias_silu_nhwc"]
+    calls = TL.AREA_ATTN["calls"]
+    res = det.detect_image(img)
+    torch.cuda.synchronize()
+    row["detect_image"] = {
+        "rows": int(len(res["merged_for_pr"])),
+        "epilogue_launches": EP.LAUNCHES["bias_silu_nhwc"] - before,
+        "area_attn_calls": TL.AREA_ATTN["calls"] - calls}
+    if row["detect_image"]["epilogue_launches"] != fused or \
+            row["detect_image"]["area_attn_calls"] != 16:
+        raise AssertionError(f"detect_image: {row['detect_image']}")
+    del det, model
+    emit({"phase": "yolo12", "epilogue_odd_channels": odd, **row})
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -3207,6 +3342,7 @@ def main(argv=None) -> int:
         "slice": smask})
     phase_ragged(E, torch)
     epi = phase_epilogue(torch, img)
+    phase_yolo12(torch, img)
     det, sl = phase_slice(torch, E, img)
     if args.profile:
         phase_profile(torch, det, img, args.profile, "profile")

@@ -63,6 +63,7 @@ class ScaleConfig:
     overlap: int
     checkpoint: Optional[str] = None
     model_scale: str = "x"
+    arch: str = "yolo11"                 # models/archs.py: yolo11, yolo12
 
 
 @dataclass(frozen=True)

@@ -19,12 +19,14 @@
 //   libdevice's expf, with no fast-math, give the same bits.
 //   Bound: bytes. It reads and writes each activation element once (2
 //   bytes in bf16) and reads the bias from L2. In NHWC the channels are
-//   the innermost axis and C is a multiple of 8, so every 16-byte vector
-//   (8 bf16 or 4 float32) lies inside one pixel's channels. The grid's
-//   stride in vectors is made a multiple of C's vectors, so a thread meets
-//   the same channels on every step: it loads its bias vector once and
-//   never takes a modulo in the loop. Each thread keeps four 16-byte loads
-//   in flight before it stores.
+//   the innermost axis, so a vector of the widest of 16, 8, 4 and 2 bytes
+//   that divides one pixel's channels (and both pointers' alignment) lies
+//   inside one pixel: 16 bytes (8 bf16 or 4 float32) for C a multiple of
+//   8, as every YOLO11 layer; 8 for YOLO12's MLP at x (C = 460). The
+//   grid's stride in vectors is made a multiple of C's vectors, so a
+//   thread meets the same channels on every step: it loads its bias vector
+//   once and never takes a modulo in the loop. Each thread keeps four
+//   vector loads in flight before it stores.
 
 #include <climits>
 #include <cuda_bf16.h>
@@ -40,10 +42,30 @@ constexpr int kThreads = 256;
 constexpr int kBlocksPerSm = 2048 / kThreads;
 constexpr int kUnroll = 4;
 
-union Pack16 {
-  uint4 u;
-  float f[4];
-  unsigned short h[8];
+template <int kBytes>
+struct Vec;
+template <>
+struct Vec<16> {
+  using T = uint4;
+};
+template <>
+struct Vec<8> {
+  using T = uint2;
+};
+template <>
+struct Vec<4> {
+  using T = unsigned int;
+};
+template <>
+struct Vec<2> {
+  using T = unsigned short;
+};
+
+template <int kBytes>
+union Pack {
+  typename Vec<kBytes>::T u;
+  float f[kBytes >= 4 ? kBytes / 4 : 1];
+  unsigned short h[kBytes / 2];
 };
 
 __device__ __forceinline__ float silu(float x) {
@@ -58,11 +80,12 @@ __device__ __forceinline__ unsigned short float_to_bf16(float x) {
   return __bfloat16_as_ushort(__float2bfloat16_rn(x));
 }
 
-template <bool kBf16, bool kAct>
-__device__ __forceinline__ void finish(Pack16& v, const Pack16& b) {
+template <bool kBf16, bool kAct, int kBytes>
+__device__ __forceinline__ void finish(Pack<kBytes>& v,
+                                       const Pack<kBytes>& b) {
   if (kBf16) {
 #pragma unroll
-    for (int k = 0; k < 8; ++k) {
+    for (int k = 0; k < kBytes / 2; ++k) {
       unsigned short s = float_to_bf16(
           __fadd_rn(bf16_to_float(v.h[k]), bf16_to_float(b.h[k])));
       if (kAct) s = float_to_bf16(silu(bf16_to_float(s)));
@@ -70,37 +93,38 @@ __device__ __forceinline__ void finish(Pack16& v, const Pack16& b) {
     }
   } else {
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
+    for (int k = 0; k < kBytes / 4; ++k) {
       const float s = __fadd_rn(v.f[k], b.f[k]);
       v.f[k] = kAct ? silu(s) : s;
     }
   }
 }
 
-// y: [N, H, W, C] as n_vec 16-byte vectors, C = c_vec vectors; bias: C.
+// y: [N, H, W, C] as n_vec vectors of kBytes, C = c_vec vectors; bias: C.
 // The launcher makes gridDim.x * kThreads a multiple of c_vec.
-template <bool kBf16, bool kAct>
+template <bool kBf16, bool kAct, int kBytes>
 __global__ void __launch_bounds__(kThreads)
-bias_silu_nhwc_kernel(uint4* __restrict__ y, const uint4* __restrict__ bias,
+bias_silu_nhwc_kernel(typename Vec<kBytes>::T* __restrict__ y,
+                      const typename Vec<kBytes>::T* __restrict__ bias,
                       long long n_vec, int c_vec) {
   const long long step = (long long)gridDim.x * kThreads;
   long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  Pack16 b;
+  Pack<kBytes> b;
   b.u = bias[i % c_vec];
   for (; i + (kUnroll - 1) * step < n_vec; i += kUnroll * step) {
-    Pack16 v[kUnroll];
+    Pack<kBytes> v[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) v[u].u = y[i + u * step];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
-      finish<kBf16, kAct>(v[u], b);
+      finish<kBf16, kAct, kBytes>(v[u], b);
       y[i + u * step] = v[u].u;
     }
   }
   for (; i < n_vec; i += step) {
-    Pack16 v;
+    Pack<kBytes> v;
     v.u = y[i];
-    finish<kBf16, kAct>(v, b);
+    finish<kBf16, kAct, kBytes>(v, b);
     y[i] = v.u;
   }
 }
@@ -114,21 +138,47 @@ long long gcd(long long a, long long b) {
   return a;
 }
 
+template <bool kBf16, bool kAct, int kBytes>
+void launch_kernel(void* y, const void* bias, long long n_vec, int c_vec,
+                   long long blocks, cudaStream_t s) {
+  using T = typename Vec<kBytes>::T;
+  bias_silu_nhwc_kernel<kBf16, kAct, kBytes>
+      <<<(unsigned)blocks, kThreads, 0, s>>>((T*)y, (const T*)bias, n_vec,
+                                             c_vec);
+}
+
+template <bool kBf16, int kBytes>
+void launch_act(void* y, const void* bias, long long n_vec, int c_vec,
+                long long blocks, int act, cudaStream_t s) {
+  if (act)
+    launch_kernel<kBf16, true, kBytes>(y, bias, n_vec, c_vec, blocks, s);
+  else
+    launch_kernel<kBf16, false, kBytes>(y, bias, n_vec, c_vec, blocks, s);
+}
+
 }  // namespace
 
 extern "C" {
 
 // y: bf16 (bf16 != 0) or float32, channels-last [N, C, H, W] of numel
-// elements, updated in place; bias: C of the same type. Both 16-byte
-// aligned, C a multiple of 8 (the wrapper checks).
+// elements, updated in place; bias: C of the same type; both aligned to
+// their element. The vector is the widest of 16, 8, 4 and 2 bytes (at
+// least one element) that divides one pixel's channels and both
+// pointers' addresses.
 int bias_silu_nhwc_launch(void* y, const void* bias, long long numel,
                           int channels, int act, int bf16, void* stream) {
   if (numel <= 0) return (int)cudaSuccess;
-  const int per_vec = bf16 ? 8 : 4;
-  if (channels <= 0 || channels % per_vec || numel % channels)
-    return (int)cudaErrorInvalidValue;
-  const long long n_vec = numel / per_vec;
-  const int c_vec = channels / per_vec;
+  const int elem = bf16 ? 2 : 4;
+  if (channels <= 0 || numel % channels) return (int)cudaErrorInvalidValue;
+  const long long row = (long long)channels * elem;
+  int bytes = 16;
+  while (bytes > elem && (row % bytes || (uintptr_t)y % bytes ||
+                          (uintptr_t)bias % bytes))
+    bytes /= 2;
+  if ((uintptr_t)y % bytes || (uintptr_t)bias % bytes)
+    return (int)cudaErrorMisalignedAddress;
+  const long long n_vec = numel * elem / bytes;
+  const int c_vec = (int)(row / bytes);
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -143,20 +193,25 @@ int bias_silu_nhwc_launch(void* y, const void* bias, long long numel,
   blocks = (blocks + unit - 1) / unit * unit;
   if (blocks > INT_MAX) return (int)cudaErrorInvalidConfiguration;
   cudaStream_t s = (cudaStream_t)stream;
-  uint4* yv = (uint4*)y;
-  const uint4* bv = (const uint4*)bias;
-  if (bf16 && act)
-    bias_silu_nhwc_kernel<true, true><<<(unsigned)blocks, kThreads, 0, s>>>(
-        yv, bv, n_vec, c_vec);
-  else if (bf16)
-    bias_silu_nhwc_kernel<true, false><<<(unsigned)blocks, kThreads, 0, s>>>(
-        yv, bv, n_vec, c_vec);
-  else if (act)
-    bias_silu_nhwc_kernel<false, true><<<(unsigned)blocks, kThreads, 0, s>>>(
-        yv, bv, n_vec, c_vec);
-  else
-    bias_silu_nhwc_kernel<false, false><<<(unsigned)blocks, kThreads, 0, s>>>(
-        yv, bv, n_vec, c_vec);
+  if (bf16) {
+    switch (bytes) {
+      case 16: launch_act<true, 16>(y, bias, n_vec, c_vec, blocks, act, s);
+        break;
+      case 8: launch_act<true, 8>(y, bias, n_vec, c_vec, blocks, act, s);
+        break;
+      case 4: launch_act<true, 4>(y, bias, n_vec, c_vec, blocks, act, s);
+        break;
+      default: launch_act<true, 2>(y, bias, n_vec, c_vec, blocks, act, s);
+    }
+  } else {
+    switch (bytes) {
+      case 16: launch_act<false, 16>(y, bias, n_vec, c_vec, blocks, act, s);
+        break;
+      case 8: launch_act<false, 8>(y, bias, n_vec, c_vec, blocks, act, s);
+        break;
+      default: launch_act<false, 4>(y, bias, n_vec, c_vec, blocks, act, s);
+    }
+  }
   return (int)cudaGetLastError();
 }
 

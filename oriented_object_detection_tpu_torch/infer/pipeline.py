@@ -1,11 +1,11 @@
 """Tiled multi-scale OBB inference.
 
 Per scale, on the device: gather the tile batch -> (DT-Edge if 4ch) -> /255
--> YOLO11-OBB forward -> decode -> the engine's ProbIoU NMS -> stitch to map
-coordinates -> border filter -> Strike angles. On the host: the per-tile
-exact-IoU merge, the cross-scale consensus fusion and the global merges
-(``infer/fusion.py``, ``native/geom.cpp``), then the ``{stem}_detected.jpg``
-and ``{stem}.xlsx`` outputs.
+-> YOLO11-OBB or YOLO12-OBB forward -> decode -> the engine's ProbIoU NMS
+-> stitch to map coordinates -> border filter -> Strike angles. On the
+host: the per-tile exact-IoU merge, the cross-scale consensus fusion and
+the global merges (``infer/fusion.py``, ``native/geom.cpp``), then the
+``{stem}_detected.jpg`` and ``{stem}.xlsx`` outputs.
 
 ``detect_images`` runs one device batch per scale over the tiles of several
 maps; ``detect_stream`` pipelines groups of maps, uploading the next group
@@ -40,7 +40,7 @@ from ..models.fold import fold_bn_state
 from ..models.weights import (jax_trees_from_torch_state, load_checkpoint,
                               load_state, torch_state_from_jax,
                               variables_from_checkpoint)
-from ..models.yolo11_obb import YOLO11OBB
+from ..models.archs import model_class
 from ..ops import dtedge as DT
 from ..ops import geometry as G
 from ..ops import image as IM
@@ -103,8 +103,8 @@ class TiledDetector:
     params_by_scale: {tile_size: flax variables {'params', 'batch_stats'}
     as numpy trees}, the JAX package's checkpoint format
     (``models.weights.variables_from_checkpoint``); each scale's model is
-    built at its ``ScaleConfig.model_scale``. ``device=None`` runs on the
-    CUDA card; pass ``device="cpu"`` for the CPU. The network computes in
+    built at its ``ScaleConfig.model_scale`` and ``arch``. ``device=None``
+    runs on the CUDA card; pass ``device="cpu"`` for the CPU. The network computes in
     ``cfg.compute_dtype``: the tiles are cast after ``/255`` (DT-Edge is
     built in float32 before), decode and NMS upcast to float32. On the card
     the models hold their weights channels-last and take their input so
@@ -129,8 +129,9 @@ class TiledDetector:
             # convs, and the fused conv + bias + SiLU graph
             state = fold_bn_state(torch_state_from_jax(
                 params_by_scale[sc.tile_size]))
-            model = YOLO11OBB(nc=cfg.nc, scale=sc.model_scale,
-                              in_channels=cfg.channels, fused_bn=True)
+            model = model_class(sc.arch)(nc=cfg.nc, scale=sc.model_scale,
+                                         in_channels=cfg.channels,
+                                         fused_bn=True)
             load_state(model, state)
             # the folded weights in the compute dtype, once: the values of
             # flax's cast of the float32 weights at every apply
@@ -405,14 +406,14 @@ class TiledDetector:
 
 
 def random_variables(nc: int, model_scale: str, channels: int,
-                     seed: int = 0) -> dict:
+                     seed: int = 0, arch: str = "yolo11") -> dict:
     """Flax variables of a seeded fresh model (the JAX package's init rule,
     ``train.trainer.fresh_model``, and the engine's head biases), for a
     scale with no checkpoint."""
     from ..train.trainer import fresh_model
 
     return jax_trees_from_torch_state(
-        fresh_model(nc, model_scale, channels, seed).state_dict())
+        fresh_model(nc, model_scale, channels, seed, arch).state_dict())
 
 
 def read_scales(triples, channels: int = 3, model_scale: str = "x",
@@ -421,7 +422,9 @@ def read_scales(triples, channels: int = 3, model_scale: str = "x",
     triples, with each checkpoint's ``extra`` read as the JAX package's
     ``cli.py detect`` reads it: a recorded ``channels`` other than
     ``channels`` raises, a recorded ``model_scale`` wins over
-    ``model_scale``, a recorded ``tile_size`` other than the scale's warns.
+    ``model_scale``, a recorded ``tile_size`` other than the scale's warns;
+    a recorded ``arch`` picks the architecture (``models/archs.py``;
+    ``yolo11`` where none is recorded).
     A scale with no checkpoint warns and gets ``random_variables``; a named
     checkpoint that does not exist raises ``ValueError`` unless
     ``allow_random``, and then warns and gets them too. Duplicate tile
@@ -464,7 +467,8 @@ def read_scales(triples, channels: int = 3, model_scale: str = "x",
                   f"{ck_ts}; running it at {ts} (fully convolutional, but "
                   f"detection quality follows the training scale)")
         params[ts] = variables_from_checkpoint(ckd)
-        scales.append(ScaleConfig(ts, ov, checkpoint=ck, model_scale=msc))
+        scales.append(ScaleConfig(ts, ov, checkpoint=ck, model_scale=msc,
+                                  arch=extra.get("arch", "yolo11")))
     if not scales:
         raise ValueError("no scale given")
     return tuple(scales), params

@@ -26,9 +26,11 @@ def calibrate_density(model, variables: dict, tile_size: int,
                       device=None) -> dict:
     """Flax variables {'params', 'batch_stats'} (numpy trees) with every
     ``cv3_*_2`` bias shifted so that ``target`` of the anchors of eight
-    ``RandomState(7)`` images land at conf 0.45. ``model`` is a
-    ``YOLO11OBB`` of the variables' shape; they are loaded into it, and it
-    runs on ``device`` (the CUDA card unless ``device="cpu"``)."""
+    ``RandomState(7)`` images land at conf 0.45: the head's last class
+    convs, at layer 23 in YOLO11 and 21 in YOLO12. ``model`` is a
+    ``YOLO11OBB`` or ``YOLO12OBB`` of the variables' shape; they are loaded
+    into it, and it runs on ``device`` (the CUDA card unless
+    ``device="cpu"``)."""
     dev = resolve_device(device)
     rng = np.random.RandomState(7)
     x = rng.randint(0, 255, (8, tile_size, tile_size, channels)) / 255.0

@@ -6,7 +6,8 @@ ultralytics-keyed state dict of numpy arrays:
     bias'    = bias - running_mean * inv
     weight'=1, mean'=0, var'=1-eps    => BN(x) == x + bias'
 
-so a ConvBN with ``fused=True`` computes conv'(x) + bias'. The arithmetic
+so a ConvBN with ``fused=True`` computes conv'(x) + bias'. Every other
+entry, such as YOLO12's ``gamma``, is passed on as it is. The arithmetic
 is the JAX package's ``models/fold.py`` (float64, cast back), so both
 packages fold to the same float32 weights.
 """

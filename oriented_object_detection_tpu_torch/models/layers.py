@@ -1,6 +1,7 @@
-"""YOLO11 building blocks as NCHW ``nn.Module``s with ultralytics' module
-names, so that a state dict has ultralytics' keys: ConvBN (ultralytics
-``Conv``), Bottleneck, C3k, C3k2, SPPF, Attention, PSABlock, C2PSA and the
+"""YOLO11 and YOLO12 building blocks as NCHW ``nn.Module``s with
+ultralytics' module names, so that a state dict has ultralytics' keys:
+ConvBN (ultralytics ``Conv``), Bottleneck, C3k, C3k2, SPPF, Attention,
+PSABlock, C2PSA, YOLO12's area attention (AAttn, ABlock, A2C2f) and the
 nearest-neighbour 2x upsample.
 
 BatchNorm uses eps 1e-3 like ultralytics. In training mode it follows
@@ -17,7 +18,7 @@ its conv weights and its input channels-last (NHWC order,
 ``infer/pipeline.py``), so cuDNN runs its NHWC kernels with no layout
 transposes around them, and every op between two convs keeps that order:
 the concatenations, splits, max pools, residual adds and ``upsample2x``,
-and ``Attention``, whose views hold in both orders.
+and ``Attention`` and ``AAttn``, whose views hold in both orders.
 
 Every module computes in its input's dtype, as flax's ``dtype=x.dtype``
 modules of the JAX package do: a conv casts its float32 weight and bias to
@@ -25,7 +26,9 @@ that dtype in ``forward``, so the cast of the network's input alone sets
 the compute dtype (bf16 or float32) and the float32 parameters get float32
 gradients. BatchNorm takes its moments and normalises in float32 and
 returns the input's dtype; attention takes its logits and softmax in
-float32.
+float32 (``AAttn`` through ``F.scaled_dot_product_attention``, whose
+kernels accumulate the logits and take the softmax in float32 and
+multiply the probabilities, in the input's dtype, with v).
 """
 
 from __future__ import annotations
@@ -36,9 +39,13 @@ import torch.nn.functional as F
 
 from ..ops.epilogue import bias_silu_nhwc
 from ..parallel import mesh as PM
+from ..utils import profiling as prof
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.97  # flax's: running = 0.97 * running + 0.03 * batch
+
+# AAttn forwards: calls, areas (attention groups of a batch) and tokens
+AREA_ATTN = {"calls": 0, "areas": 0, "tokens": 0}
 
 
 def at_least_float32(x: torch.Tensor) -> torch.Tensor:
@@ -274,6 +281,112 @@ class C2PSA(nn.Module):
     def forward(self, x):
         a, b = self.cv1(x).split(self.c, 1)
         return self.cv2(torch.cat([a, self.m(b)], 1))
+
+
+def area_tokens(t: torch.Tensor, area: int, heads: int) -> torch.Tensor:
+    """[B, C, H, W] -> the view [B, area, N / area, heads, C / heads] of its
+    tokens in row-major (h, w) order, an area being a run of N / area
+    tokens (a strip of H / area rows), channel ``head * C / heads + j`` at
+    [..., head, j]. A view in NCHW and in channels-last order alike."""
+    B, C, H, W = t.shape
+    return t.permute(0, 2, 3, 1).view(B, area, H * W // area, heads,
+                                      C // heads)
+
+
+class AAttn(nn.Module):
+    """YOLO12's area attention (ultralytics ``AAttn``): the qkv 1x1 ConvBN,
+    the tokens cut into ``area`` areas of consecutive rows, each head's
+    softmax(q k^T / sqrt(d)) v within its area, and ``proj(out + pe(v))``
+    with a 7x7 depthwise positional ConvBN. Channel ``head * 3d + j`` of
+    qkv is q for j < d, k for d <= j < 2d, v above; the output channel is
+    ``head * d + j``.
+
+    q, k and v are views of qkv's output, [B * area, heads, N / area, d]
+    with unit stride in d on the card (channels-last), handed as they are
+    to ``F.scaled_dot_product_attention``. v is gathered once into a tensor
+    of the input's layout for ``pe``, and the attention's output is added
+    into ``pe``'s through a view, so the block keeps its input's layout.
+    Each forward opens the span ``forward_area_attn`` and counts itself in
+    ``AREA_ATTN``."""
+
+    def __init__(self, dim: int, num_heads: int, area: int = 1):
+        super().__init__()
+        self.area = area
+        self.num_heads = num_heads
+        self.head_dim = dim // num_heads
+        self.qkv = ConvBN(dim, 3 * dim, 1, act=False)
+        self.proj = ConvBN(dim, dim, 1, act=False)
+        self.pe = ConvBN(dim, dim, 7, g=dim, act=False)
+
+    def forward(self, x):
+        with prof.span("forward_area_attn"):
+            B, C, H, W = x.shape
+            a, h, d = self.area, self.num_heads, self.head_dim
+            n = H * W // a
+            qkv = area_tokens(self.qkv(x), a, h).reshape(B * a, n, h, 3 * d)
+            q, k, v = qkv.transpose(1, 2).split(d, dim=-1)
+            out = F.scaled_dot_product_attention(q, k, v)
+            pe_in = torch.empty_like(x)
+            area_tokens(pe_in, a, h).copy_(v.view(B, a, h, n, d).transpose(
+                2, 3))
+            y = self.pe(pe_in)
+            area_tokens(y, a, h).add_(out.view(B, a, h, n, d).transpose(2, 3))
+            AREA_ATTN["calls"] += 1
+            AREA_ATTN["areas"] += B * a
+            AREA_ATTN["tokens"] += B * H * W
+            return self.proj(y)
+
+
+class ABlock(nn.Module):
+    """Area-attention block: ``x + attn(x)``, then ``x + mlp(x)`` with a
+    1x1 ConvBN + SiLU to ``int(dim * mlp_ratio)`` channels and a 1x1
+    ConvBN back."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 1.2,
+                 area: int = 1):
+        super().__init__()
+        self.attn = AAttn(dim, num_heads, area)
+        hidden = int(dim * mlp_ratio)
+        self.mlp = nn.Sequential(ConvBN(dim, hidden, 1),
+                                 ConvBN(hidden, dim, 1, act=False))
+
+    def forward(self, x):
+        x = x + self.attn(x)
+        return x + self.mlp(x)
+
+
+class A2C2f(nn.Module):
+    """YOLO12's residual area-attention stage: ``cv1`` to ``c2 / 2``
+    channels, ``n`` modules chained on it (two ABlocks each with ``a2``,
+    else a C3k), ``cv2`` over the concatenation of all their outputs; with
+    ``a2`` and ``residual`` the stage returns ``x + gamma * out``, gamma a
+    parameter of one value a channel."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, a2: bool = True,
+                 area: int = 1, residual: bool = False,
+                 mlp_ratio: float = 2.0):
+        super().__init__()
+        c_ = c2 // 2
+        if c_ % 32:
+            raise ValueError(f"A2C2f: {c_} hidden channels, not a multiple "
+                             f"of the head size 32")
+        self.cv1 = ConvBN(c1, c_, 1)
+        self.cv2 = ConvBN((1 + n) * c_, c2, 1)
+        self.gamma = (nn.Parameter(torch.full((c2,), 0.01))
+                      if a2 and residual else None)
+        self.m = nn.ModuleList(
+            nn.Sequential(*(ABlock(c_, c_ // 32, mlp_ratio, area)
+                            for _ in range(2)))
+            if a2 else C3k(c_, c_, 2, True) for _ in range(n))
+
+    def forward(self, x):
+        ys = [self.cv1(x)]
+        for m in self.m:
+            ys.append(m(ys[-1]))
+        y = self.cv2(torch.cat(ys, 1))
+        if self.gamma is None:
+            return y
+        return x + self.gamma.to(y.dtype)[:, None, None] * y
 
 
 def upsample2x(x: torch.Tensor) -> torch.Tensor:

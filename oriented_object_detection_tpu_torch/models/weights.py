@@ -22,6 +22,9 @@ import torch
 # flax conv kernels are HWIO, the port's OIHW: axis i of a port kernel is
 # axis KERNEL_AXES[i] of the flax kernel
 KERNEL_AXES = (3, 2, 0, 1)
+# the OBB head's layer: 23 in YOLO11, 21 in YOLO12 (neither has a layer
+# with parameters at the other's index)
+HEAD_LAYERS = ("21", "23")
 _FLAX_KERNEL_AXES = tuple(int(a) for a in np.argsort(KERNEL_AXES))
 
 
@@ -113,7 +116,7 @@ def _flax_path_to_torch(path: list[str]) -> str | None:
             parts.append(f"model.{m.group(1)}")
             continue
         hm = re.match(r"^cv([234])_(\d+)_(\d+)(?:_(\d+))?$", p)
-        if hm and parts and parts[0].endswith(".23"):
+        if hm and parts and parts[0] in [f"model.{i}" for i in HEAD_LAYERS]:
             b, lvl, st, sub = hm.groups()
             parts.append(f"cv{b}.{lvl}.{st}" + (f".{sub}" if sub else ""))
             continue
@@ -126,6 +129,8 @@ def _flax_path_to_torch(path: list[str]) -> str | None:
         parts.append(p)
     name = ".".join(parts)
     plain_head_conv = re.search(r"cv[234]\.\d+\.\d+$", name) is not None
+    if leaf == "gamma":                        # YOLO12's A2C2f residual scale
+        return name + ".gamma"
     if leaf == "kernel":
         if name.endswith("conv") or plain_head_conv:
             return name + ".weight"
@@ -172,7 +177,7 @@ def _torch_key_to_flax(key: str) -> tuple[str, list[str]]:
         raise KeyError(f"no flax path for torch key {key}")
     path, rest = [f"l{parts[1]}"], parts[2:-1]
     leaf = parts[-1]
-    if parts[1] == "23":                       # the OBB head
+    if parts[1] in HEAD_LAYERS:                # the OBB head
         branch, lvl, st = rest[0], rest[1], rest[2]
         sub = rest[3] if len(rest) > 3 and rest[3].isdigit() else None
         path.append(f"{branch}_{lvl}_{st}" + (f"_{sub}" if sub else ""))
@@ -188,6 +193,8 @@ def _torch_key_to_flax(key: str) -> tuple[str, list[str]]:
         else:
             path.append(rest[j])
             j += 1
+    if leaf == "gamma" and not rest:           # YOLO12's A2C2f.gamma
+        return "params", path + ["gamma"]
     if path[-1] == "bn":
         if leaf not in _BN_LEAVES:
             raise KeyError(f"no flax path for torch key {key}")

@@ -53,28 +53,25 @@ def bias_silu_nhwc_plain(y: torch.Tensor, bias: torch.Tensor,
 def bias_silu_nhwc(y: torch.Tensor, bias: torch.Tensor,
                    act: bool) -> torch.Tensor:
     """The kernel on a CUDA tensor, in place, its plain version on a CPU
-    tensor. y: bf16 or float32 [N, C, H, W], channels-last on the card,
-    C a multiple of 8; bias: [C]. Returns the result."""
+    tensor. y: bf16 or float32 [N, C, H, W], channels-last on the card;
+    bias: [C]. Returns the result."""
     if y.device.type == "cpu":
         return bias_silu_nhwc_plain(y, bias, act)
     if y.device.type != "cuda":
         raise ValueError(f"bias_silu_nhwc: unsupported device {y.device}")
     if (y.dim() != 4 or y.dtype not in (torch.bfloat16, torch.float32)
-            or not y.is_contiguous(memory_format=torch.channels_last)
-            or y.shape[1] % 8):
+            or not y.is_contiguous(memory_format=torch.channels_last)):
         raise ValueError(
-            f"bias_silu_nhwc wants a channels-last bf16/float32 [N, C, H, W] "
-            f"with C a multiple of 8, got {y.dtype} {tuple(y.shape)} strides "
-            f"{y.stride()}")
+            f"bias_silu_nhwc wants a channels-last bf16/float32 [N, C, H, W], "
+            f"got {y.dtype} {tuple(y.shape)} strides {y.stride()}")
     if y.requires_grad:
         raise ValueError("bias_silu_nhwc has no backward: call it under "
                          "torch.no_grad or torch.inference_mode")
     bias = bias.to(y.dtype)
     if (bias.shape != (y.shape[1],) or not bias.is_contiguous()
-            or bias.device != y.device
-            or (y.data_ptr() | bias.data_ptr()) % 16):
+            or bias.device != y.device):
         raise ValueError(f"bias_silu_nhwc wants a contiguous bias [C] on "
-                         f"{y.device} and 16-byte aligned tensors")
+                         f"{y.device}")
     launch("bias_silu_nhwc", kernel_library().bias_silu_nhwc_launch,
            y.data_ptr(), bias.data_ptr(), y.numel(), y.shape[1], int(act),
            int(y.dtype == torch.bfloat16), stream(y))

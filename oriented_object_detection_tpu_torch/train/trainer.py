@@ -33,6 +33,7 @@ import torch
 from ..config import TrainConfig, torch_dtype
 from ..models.weights import (jax_trees_from_torch_state, load_checkpoint,
                               load_state, torch_state_from_jax)
+from ..models.archs import model_class
 from ..models.yolo11_obb import STRIDES, YOLO11OBB
 from ..parallel import distributed as PD
 from ..parallel import mesh as PM
@@ -211,8 +212,9 @@ class TrainState:
 
 def init_head_biases(model: YOLO11OBB, nc: int) -> None:
     """The engine's bias_init: box DFL conv biases 1.0, class conv biases
-    log(5 / nc / (640 / stride)^2), so a fresh detector is sparse."""
-    head = model.model["23"]
+    log(5 / nc / (640 / stride)^2), so a fresh detector is sparse. The
+    head is the model's last layer (23 in YOLO11, 21 in YOLO12)."""
+    head = list(model.model.values())[-1]
     with torch.no_grad():
         for lvl, s in enumerate(STRIDES):
             head.cv2[lvl][-1].bias.fill_(1.0)
@@ -225,8 +227,8 @@ def init_head_biases(model: YOLO11OBB, nc: int) -> None:
 _TRUNC_STD = 0.87962566103423978
 
 
-def fresh_model(nc: int, scale: str, channels: int, seed: int
-                ) -> YOLO11OBB:
+def fresh_model(nc: int, scale: str, channels: int, seed: int,
+                arch: str = "yolo11") -> YOLO11OBB:
     """A freshly initialized model on the CPU, by the JAX package's rule
     (flax's defaults, the values drawn from a generator seeded by
     ``seed``): every conv kernel lecun normal (a normal truncated at two
@@ -234,9 +236,10 @@ def fresh_model(nc: int, scale: str, channels: int, seed: int
     BatchNorm scales 1, biases 0 and statistics 0 and 1, then the engine's
     head biases. torch's default conv init has a third of that variance,
     which fades the signal over the network's depth until a random model's
-    scores hardly depend on its input."""
+    scores hardly depend on its input. ``arch`` names the architecture
+    (``models/archs.py``); YOLO12's ``gamma`` keeps ultralytics' 0.01."""
     torch.manual_seed(seed)
-    model = YOLO11OBB(nc=nc, scale=scale, in_channels=channels)
+    model = model_class(arch)(nc=nc, scale=scale, in_channels=channels)
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for m in model.modules():

@@ -96,7 +96,9 @@ def test_wrapper_refuses_a_device_it_has_no_kernel_for():
 
 @pytest.mark.parametrize("scale", sorted(SCALES))
 def test_every_fused_convbn_has_channels_in_eights(scale):
-    """The kernel takes C a multiple of 8: every ConvBN of every scale."""
+    """Every YOLO11 ConvBN of every scale has C a multiple of 8, so the
+    kernel runs its 16-byte vectors on YOLO11's forward (YOLO12's MLP at
+    460 channels takes 8-byte ones)."""
     model = YOLO11OBB(nc=12, scale=scale, fused_bn=True)
     widths = [m.conv.out_channels for m in model.modules()
               if isinstance(m, TL.ConvBN)]
