@@ -48,6 +48,15 @@ bounds hold as before:
              transpose, the forward's device ms and the kernels of its
              ``forward_area_attn`` spans with their ms (which attention
              backend ran), and one ``detect_image``.
+   concat_in_place - the blocks' concatenations built in place: the
+             epilogue kernel bit-equal to its plain version in every mode
+             (in place, two destinations, a residual, a residual that is a
+             channel slice, a residual with a scale) at 16-, 8-, 4- and
+             2-byte vectors; at a sheet's chunk of each YOLO11x dual scale
+             and a sheet's 25 YOLO12x tiles, the fused forward bit-equal
+             to the ``torch.cat`` form (each block's ``forward_plain``),
+             ``STORES``, the launches and the ``torch.cat`` kernels a
+             forward, both forms' device ms and the epilogue's ms by mode.
 5. slice   - runs the 4-channel 416/100 detector on the committed
              ``train416_4ch.ckpt`` (YOLO11n-OBB) over a seeded synthetic
              1024x1024 map (16 tiles): both kernels must launch, the
@@ -802,6 +811,8 @@ def phase_profile(torch, det, img, maps: int, phase: str) -> None:
 SHEET_TILES = {128: 1764, 416: 169}
 # cuDNN's layout transposes around its NHWC kernels
 LAYOUT_KERNELS = ("nchwToNhwc", "nhwcToNchw")
+# PyTorch's torch.cat kernel
+CAT_KERNEL = "CatArrayBatchedCopy"
 
 
 def sheet_chunk(torch, det, img, ts: int, n: int | None = None):
@@ -822,7 +833,8 @@ def sheet_chunk(torch, det, img, ts: int, n: int | None = None):
 
 @contextlib.contextmanager
 def epilogue_as(TL, fn):
-    """Every fused ConvBN's epilogue through ``fn`` (y, bias, act)."""
+    """Every fused ConvBN's epilogue through ``fn`` (y, bias, act, outs,
+    residual, scale)."""
     saved = TL.bias_silu_nhwc
     TL.bias_silu_nhwc = fn
     try:
@@ -831,45 +843,100 @@ def epilogue_as(TL, fn):
         TL.bias_silu_nhwc = saved
 
 
+def epilogue_mode(outs, residual, scale) -> str:
+    """Where an epilogue stores (in place, or to one or two destinations)
+    and what it adds: ``2_dest+residual``, ``in_place+residual+scale``."""
+    return "+".join(["in_place" if not outs else f"{len(outs)}_dest"]
+                    + ["residual"] * (residual is not None)
+                    + ["scale"] * (scale is not None))
+
+
+def epilogue_bytes(y, outs, residual) -> int:
+    """Bytes an epilogue must move: y and the residual read once, each
+    stored element written once."""
+    n = y.numel() + (0 if residual is None else residual.numel()) + (
+        sum(t.numel() for t, _ in outs) if outs else y.numel())
+    return n * y.element_size()
+
+
+def checked_epilogue(torch, EP, label: str, seen: list):
+    """An epilogue for ``epilogue_as``: the kernel, its every stored
+    element held bit-equal to the plain version's result on the same conv
+    output; appends each call's (shape, mode) to ``seen``."""
+    def checked(y, bias, act, outs=(), residual=None, scale=None):
+        mode = epilogue_mode(outs, residual, scale)
+        ref = EP.bias_silu_nhwc_plain(y.clone(), bias, act, (), residual,
+                                      scale)
+        got = EP.bias_silu_nhwc(y, bias, act, outs, residual, scale)
+        for t, first in outs or [(got, 0)]:
+            if not torch.equal(t, ref[:, first:first + t.shape[1]]):
+                raise AssertionError(
+                    f"bias_silu_nhwc {label} at {list(y.shape)} (act {act}, "
+                    f"{mode}) differs from its plain version")
+        seen.append((list(y.shape), mode))
+        return got
+    return checked
+
+
 def epilogue_times(torch, TL, EP, model, x) -> dict:
     """Device ms of one forward's epilogues, summed over its fused ConvBNs:
     the kernel (``ms``), its plain version (``plain_ms``: the broadcast
-    add, then SiLU out of place) and the library's in-place pair
-    ``F.silu(y.add_(b), inplace=True)`` (``library_ms``); and their bytes
-    bound (each element read and written once at 3.35 TB/s). Each call is
-    queued behind a short device sleep, so its two events time the device
+    add, SiLU, product and sum out of place, ``copy_`` to each
+    destination) and the library's in-place ops
+    ``F.silu(y.add_(b), inplace=True)``, ``mul_``, ``add_``, ``copy_``
+    (``library_ms``); and their bytes bound (``epilogue_bytes`` at 3.35
+    TB/s); in all and by mode (``epilogue_mode``). Each call is queued
+    behind a short device sleep, so its two events time the device
     alone."""
-    def library(y, bias, act):
+    def library(y, bias, act, outs=(), residual=None, scale=None):
         y = y.add_(bias.to(y.dtype)[:, None, None])
-        return torch.nn.functional.silu(y, inplace=True) if act else y
+        if act:
+            y = torch.nn.functional.silu(y, inplace=True)
+        if scale is not None:
+            y = y.mul_(scale.to(y.dtype)[:, None, None])
+        if residual is not None:
+            y = y.add_(residual)
+        for t, first in outs:
+            t.copy_(y[:, first:first + t.shape[1]])
+        return outs[0][0] if outs else y
 
     sleep = int(0.05 * sleep_cycles_per_ms())
-    out = {}
+    out, by_mode = {}, {}
     for key, impl in (("ms", EP.bias_silu_nhwc),
                       ("plain_ms", EP.bias_silu_nhwc_plain),
                       ("library_ms", library)):
-        events, nbytes = [], []
+        calls = []
 
-        def timed(y, bias, act):
+        def timed(y, bias, act, outs=(), residual=None, scale=None):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             torch.cuda._sleep(sleep)
             start.record()
-            res = impl(y, bias, act)
+            res = impl(y, bias, act, outs, residual, scale)
             end.record()
-            events.append((start, end))
-            nbytes.append(2 * y.numel() * y.element_size())
+            calls.append((epilogue_mode(outs, residual, scale), start, end,
+                          epilogue_bytes(y, outs, residual)))
             return res
 
         with torch.inference_mode(), epilogue_as(TL, timed):
             for _ in range(2):    # warm, then timed
-                events.clear()
-                nbytes.clear()
+                calls.clear()
                 model(x)
                 torch.cuda.synchronize()
-        out[key] = sum(s.elapsed_time(e) for s, e in events)
-    out["bytes"] = sum(nbytes)
+        out[key] = 0.0
+        for mode, start, end, nbytes in calls:
+            ms = start.elapsed_time(end)
+            out[key] += ms
+            row = by_mode.setdefault(mode, {"launches": 0, "bytes": 0})
+            row[key] = row.get(key, 0.0) + ms
+            if key == "ms":
+                row["launches"] += 1
+                row["bytes"] += nbytes
+    out["bytes"] = sum(row["bytes"] for row in by_mode.values())
     out["bound_ms"] = out["bytes"] / HBM_BYTES_PER_S * 1e3
+    for row in by_mode.values():
+        row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
+    out["by_mode"] = by_mode
     return out
 
 
@@ -898,12 +965,66 @@ def kernels_in_span(prof, span: str, ms: bool = False) -> dict:
     return count
 
 
+@contextlib.contextmanager
+def layer_spans(torch, model):
+    """Each layer of ``model.model`` (its yaml index ``i``) inside a
+    profiler range ``obb/layer_<i>`` while it runs."""
+    from oriented_object_detection_tpu_torch.utils import profiling as P
+
+    handles, ranges = [], {}
+    for name, layer in model.model.named_children():
+        def enter(mod, args, _name=name):
+            ranges[_name] = torch.autograd.profiler.record_function(
+                f"{P.SPAN_PREFIX}layer_{_name}")
+            ranges[_name].__enter__()
+
+        def leave(mod, args, out, _name=name):
+            ranges.pop(_name).__exit__(None, None, None)
+        handles += [layer.register_forward_pre_hook(enter),
+                    layer.register_forward_hook(leave)]
+    try:
+        yield
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def elementwise_ops(prof) -> list:
+    """The kernels of a finished profile that are no convolution, matrix
+    product, attention or epilogue (``kernel_kind`` ``elementwise_other``
+    less those), by the layer range (``layer_spans``) and the outermost
+    and innermost ``aten::`` operators that launched them: [kernel |
+    layer | operators, launches, device ms], costliest first."""
+    rows = {}
+    for e in prof.events():
+        for k in getattr(e, "kernels", ()):
+            if (kernel_kind(k.name) != "elementwise_other"
+                    or any(t in k.name for t in ("bias_silu_nhwc", "nvjet",
+                                                 "sdpa", "flash"))):
+                continue
+            ops, layer, p = [e.name], "-", e.cpu_parent
+            while p is not None:
+                if p.name.startswith("aten::"):
+                    ops.append(p.name)
+                elif "/layer_" in p.name and layer == "-":
+                    layer = p.name
+                p = p.cpu_parent
+            op = ops[-1] + ("" if len(ops) == 1 else f" > {ops[0]}")
+            row = rows.setdefault(f"{k.name[:60]} | {layer} | {op}", [0, 0.0])
+            row[0] += 1
+            row[1] += k.duration / 1e3
+    return sorted(([k, n, ms] for k, (n, ms) in rows.items()),
+                  key=lambda r: -r[2])
+
+
 def forward_kernels(torch, model, x) -> dict:
     """One warm forward under ``torch.profiler``, in a span
     ``obb/forward`` as ``TiledDetector`` opens it: device ms by kind and by
     kernel, the epilogue kernel's launches, those of them that the span
-    holds, and every kernel whose name speaks of a layout (NCHW/NHWC,
-    transpose) with its ms."""
+    holds, the ``torch.cat`` kernels, every kernel whose name speaks of a
+    layout (NCHW/NHWC, transpose) with its ms, and the elementwise kernels
+    by the layer and the operator that launched them (``elementwise_ops``,
+    the layers in ``layer_spans``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from oriented_object_detection_tpu_torch.utils import profiling as P
@@ -913,7 +1034,7 @@ def forward_kernels(torch, model, x) -> dict:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            with P.span("forward"):
+            with P.span("forward"), layer_spans(torch, model):
                 model(x)
             torch.cuda.synchronize()
     in_span = kernels_in_span(prof, P.SPAN_PREFIX + "forward")
@@ -937,9 +1058,12 @@ def forward_kernels(torch, model, x) -> dict:
                                      if "bias_silu_nhwc" in k),
             "epilogue_launches_in_span": sum(
                 n for k, n in in_span.items() if "bias_silu_nhwc" in k),
+            "cat_launches": sum(n for k, n in count.items()
+                                if CAT_KERNEL in k),
             "layout_kernels_ms": layout,
             "cudnn_transposes": sorted(k[:120] for k in by_name if any(
                 t in k for t in LAYOUT_KERNELS)),
+            "elementwise_ops": elementwise_ops(prof),
             "top_kernels": [{"name": k[:120], "ms": v, "launches": count[k]}
                             for k, v in sorted(by_name.items(),
                                                key=lambda kv: -kv[1])[:15]]}
@@ -973,30 +1097,20 @@ def phase_epilogue(torch, img) -> dict:
                  for ts, model in det.models.items()}
         for ts, model in det.models.items():
             x = sheet_chunk(torch, det, img, ts)
-            shapes = []
-
-            def checked(y, bias, act, _ts=ts):
-                ref = EP.bias_silu_nhwc_plain(y.clone(), bias, act)
-                got = EP.bias_silu_nhwc(y, bias, act)
-                if not torch.equal(got, ref):
-                    raise AssertionError(
-                        f"bias_silu_nhwc {dtype} at {list(y.shape)} (tile "
-                        f"{_ts}, act {act}) differs from its plain version")
-                shapes.append(list(y.shape))
-                return got
-
+            seen = []
+            checked = checked_epilogue(torch, EP, f"{dtype} tile {ts}", seen)
             before = EP.LAUNCHES["bias_silu_nhwc"]
             with torch.inference_mode(), epilogue_as(TL, checked):
                 model(x)
             torch.cuda.synchronize()
             launched = EP.LAUNCHES["bias_silu_nhwc"] - before
-            if not launched == len(shapes) == fused[ts]:
+            if not launched == len(seen) == fused[ts]:
                 raise AssertionError(f"{dtype} tile {ts}: {launched} "
-                                     f"launches, {len(shapes)} calls, "
+                                     f"launches, {len(seen)} calls, "
                                      f"{fused[ts]} fused ConvBNs")
             row = {"tiles": SHEET_TILES[ts], "fused_convbn": fused[ts],
                    "launches": launched, "bit_equal": True,
-                   "largest": max(shapes, key=np.prod)}
+                   "largest": max((sh for sh, _ in seen), key=np.prod)}
             if dtype == "bf16":
                 row["epilogue"] = epilogue_times(torch, TL, EP, model, x)
                 row["forward"] = forward_kernels(torch, model, x)
@@ -1084,17 +1198,8 @@ def phase_yolo12(torch, img) -> dict:
     fused = sum(isinstance(m, TL.ConvBN) and m.fused
                 for m in model.modules())
     x = sheet_chunk(torch, det, img, ts, YOLO12_SHEET_TILES)
-    widths = set()
-
-    def checked(y, bias, act):
-        ref = EP.bias_silu_nhwc_plain(y.clone(), bias, act)
-        got = EP.bias_silu_nhwc(y, bias, act)
-        if not torch.equal(got, ref):
-            raise AssertionError(f"bias_silu_nhwc at {list(y.shape)} (act "
-                                 f"{act}) differs from its plain version")
-        widths.add(y.shape[1])
-        return got
-
+    seen = []
+    checked = checked_epilogue(torch, EP, "yolo12x", seen)
     before = EP.LAUNCHES["bias_silu_nhwc"]
     attn0 = dict(TL.AREA_ATTN)
     with torch.inference_mode(), epilogue_as(TL, checked):
@@ -1109,7 +1214,8 @@ def phase_yolo12(torch, img) -> dict:
                              f"fused ConvBNs; AREA_ATTN {area}")
     row = {"tiles": n, "fused_convbn": fused, "epilogue_launches": launched,
            "area_attn": area, "epilogue_bit_equal": True,
-           "odd_channel_counts_seen": sorted(c for c in widths if c % 8),
+           "odd_channel_counts_seen": sorted({sh[1] for sh, _ in seen
+                                              if sh[1] % 8}),
            "build_s": build_s}
     row["forward"] = forward_kernels(torch, model, x)
     if row["forward"]["cudnn_transposes"]:
@@ -1149,6 +1255,168 @@ def phase_yolo12(torch, img) -> dict:
     del det, model
     emit({"phase": "yolo12", "epilogue_odd_channels": odd, **row})
     return row
+
+
+# channel counts whose bf16 pixel rows take the epilogue's 16-, 8-, 4- and
+# 2-byte vectors (float32: 16, 16, 8, 4); 460 is YOLO12's MLP at x
+EPILOGUE_VECTOR_CHANNELS = (384, 460, 306, 307)
+
+
+@contextlib.contextmanager
+def cat_form(TL):
+    """Every block through its ``forward_plain``: the concatenations by
+    ``torch.cat`` and the residual adds apart, as the forward ran before
+    the blocks built their concatenations in place."""
+    blocks = (TL.Bottleneck, TL.C3k, TL.C3k2, TL.ABlock, TL.A2C2f)
+    saved = {cls: cls.forward for cls in blocks}
+    for cls in blocks:
+        cls.forward = cls.forward_plain
+    try:
+        yield
+    finally:
+        for cls, fn in saved.items():
+            cls.forward = fn
+
+
+def epilogue_modes(torch, EP) -> dict:
+    """The epilogue kernel bit-equal to its plain version in each mode (in
+    place; two destinations, a buffer's channel slice and a packed tensor
+    of the last channels; a packed residual; a residual that is a channel
+    slice, to two destinations; a residual with a scale) at every channel
+    count of ``EPILOGUE_VECTOR_CHANNELS``, bf16 and float32, act on and
+    off. Returns the modes checked a channel count."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    N, H, W = 3, 17, 19
+    checked = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for c in EPILOGUE_VECTOR_CHANNELS:
+            mk = lambda ch: torch.randn(N, ch, H, W, device="cuda",
+                                        generator=gen).to(
+                dtype, memory_format=torch.channels_last)
+            bias = torch.randn(c, device="cuda", generator=gen)
+            scale = torch.randn(c, device="cuda", generator=gen)
+            wide = mk(c + 24)
+            # the packed destination's first channel: as C3k2's cv1 at
+            # even counts, and at each count's own vector width
+            first = c - c // 16 * 8
+
+            def dests():
+                buf = mk(c + 16)
+                return [(buf[:, 16:], 0), (mk(c - first), first)]
+
+            cases = {"in_place": ((), None, None),
+                     "2_dest": (dests(), None, None),
+                     "in_place+residual": ((), mk(c), None),
+                     "2_dest+residual_slice": (dests(), wide[:, 8:8 + c],
+                                               None),
+                     "in_place+residual+scale": ((), mk(c), scale),
+                     "2_dest+residual+scale": (dests(), mk(c), scale)}
+            for act in (True, False):
+                for mode, (outs, residual, sc) in cases.items():
+                    y = mk(c)
+                    ref = EP.bias_silu_nhwc_plain(y.clone(), bias, act, (),
+                                                  residual, sc)
+                    got = EP.bias_silu_nhwc(y, bias, act, outs, residual, sc)
+                    torch.cuda.synchronize()
+                    for t, first in outs or [(got, 0)]:
+                        if not torch.equal(t, ref[:, first:first
+                                                  + t.shape[1]]):
+                            raise AssertionError(
+                                f"bias_silu_nhwc {dtype} C={c} act {act} "
+                                f"{mode} differs from its plain version")
+            checked[f"{str(dtype)[6:]}_{c}"] = sorted(cases)
+    return checked
+
+
+def concat_forward(torch, TL, EP, model, x, label: str) -> dict:
+    """A fused channels-last forward built in place against the
+    ``torch.cat`` form (``cat_form``): bit-equal outputs, ``STORES`` and
+    ``LAUNCHES`` a forward, each form's ``torch.cat`` kernels, device ops
+    and device ms a forward, and the epilogues' device ms by mode."""
+    with torch.inference_mode():
+        with cat_form(TL):
+            want = model(x)
+        EP.STORES.update(concat_parts=0, residual_folds=0)
+        before = EP.LAUNCHES["bias_silu_nhwc"]
+        got = model(x)
+        torch.cuda.synchronize()
+    row = {"stores": dict(EP.STORES),
+           "launches": EP.LAUNCHES["bias_silu_nhwc"] - before}
+    for key in ("box", "cls", "ang"):
+        for a, b in zip(want[key], got[key]):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{label}: the in-place forward's {key} "
+                                     f"differs from the torch.cat form's")
+    row["bit_equal_to_cat_form"] = True
+    del want, got
+    for form, ctx in (("cat_form", cat_form), ("in_place", None)):
+        with (ctx(TL) if ctx else contextlib.nullcontext()):
+            prof = forward_kernels(torch, model, x)
+            with torch.inference_mode():
+                torch.cuda.reset_peak_memory_stats()
+                ms = device_ms(lambda: model(x), reps=3)
+            row[form] = {
+                "forward_ms": ms, "cat_launches": prof["cat_launches"],
+                "device_ops": prof["device_ops"],
+                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                "device_ms_by_kind": prof["device_ms_by_kind"],
+                "top_kernels": prof["top_kernels"],
+                "elementwise_ops": prof["elementwise_ops"]}
+    row["epilogue"] = epilogue_times(torch, TL, EP, model, x)
+    return row
+
+
+def phase_concat_in_place(torch, img) -> dict:
+    """The blocks' concatenations built in place (``models/layers.py``):
+    the epilogue kernel bit-equal to its plain version in each mode at
+    16-, 8-, 4- and 2-byte vectors (``epilogue_modes``); then, in bf16 and
+    channels-last, at a 4096x4096 sheet's chunk of each YOLO11x dual scale
+    (committed checkpoints) and a sheet's 25 YOLO12x tiles of 1024
+    (seeded weights), the forward against the ``torch.cat`` form
+    (``concat_forward``): bit-equal, ``STORES`` (56 / 32 and 52 / 42 a
+    forward), one launch a fused ConvBN, the ``torch.cat`` kernels of both
+    forms (at most 6 and 4 left: the concatenations outside the blocks;
+    PyTorch copies a concatenation of strided parts without its cat
+    kernel), device ms of both forms, epilogue ms by mode."""
+    from oriented_object_detection_tpu_torch.config import (DetectConfig,
+                                                          ScaleConfig)
+    from oriented_object_detection_tpu_torch.infer.pipeline import (
+        TiledDetector, build_detector, random_variables)
+    from oriented_object_detection_tpu_torch.models import layers as TL
+    from oriented_object_detection_tpu_torch.ops import epilogue as EP
+
+    out = {"modes_bit_equal": epilogue_modes(torch, EP)}
+    emit({"phase": "concat_in_place", **out})
+    # STORES a forward, and the torch.cat calls left outside the blocks (the
+    # head's four, YOLO11's SPPF and C2PSA): a bound on the cat kernels
+    expect = {"yolo11x": ({"concat_parts": 56, "residual_folds": 32}, 6),
+              "yolo12x": ({"concat_parts": 52, "residual_folds": 42}, 4)}
+    det = build_detector(DUAL)
+    ts12 = YOLO12_TILE
+    det12 = TiledDetector(DetectConfig(scales=(ScaleConfig(
+        ts12, YOLO12_OVERLAP, model_scale="x", arch="yolo12"),)),
+        {ts12: random_variables(12, "x", 3, seed=0, arch="yolo12")})
+    runs = [("yolo11x", det, ts, None) for ts in det.models] + [
+        ("yolo12x", det12, ts12, YOLO12_SHEET_TILES)]
+    for arch, d, ts, n in runs:
+        model = d.models[ts]
+        fused = sum(isinstance(m, TL.ConvBN) and m.fused
+                    for m in model.modules())
+        x = sheet_chunk(torch, d, img, ts, n)
+        row = concat_forward(torch, TL, EP, model, x, f"{arch} tile {ts}")
+        stores, cats_left = expect[arch]
+        if (row["stores"] != stores or row["launches"] != fused
+                or row["in_place"]["cat_launches"] > cats_left):
+            raise AssertionError(
+                f"{arch} tile {ts}: STORES {row['stores']}, {row['launches']}"
+                f" launches for {fused} fused ConvBNs, torch.cat kernels "
+                f"{row['cat_form']['cat_launches']} -> "
+                f"{row['in_place']['cat_launches']}")
+        out[f"{arch}_{ts}"] = row
+        emit({"phase": "concat_in_place", "model": arch, "tile": ts,
+              "tiles": len(x), **row})
+        del x
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3343,6 +3611,7 @@ def main(argv=None) -> int:
     phase_ragged(E, torch)
     epi = phase_epilogue(torch, img)
     phase_yolo12(torch, img)
+    phase_concat_in_place(torch, img)
     det, sl = phase_slice(torch, E, img)
     if args.profile:
         phase_profile(torch, det, img, args.profile, "profile")

@@ -9,8 +9,18 @@ flax's ``nn.BatchNorm`` (the JAX package's), not ``nn.BatchNorm2d``'s
 update: see ``BatchNorm``. A ConvBN whose ``fused`` flag is set runs the
 fused inference graph, conv + BN bias + SiLU, which is right once
 ``fold.fold_bn_state`` has folded the BatchNorm into the conv weights; the
-bias and SiLU are one in-place pass, ``ops/epilogue.py``, a kernel on the
-card.
+bias and SiLU are one pass, ``ops/epilogue.py``, a kernel on the card.
+
+Where its ConvBNs are fused, a block with a concatenation (C3k2, C3k,
+A2C2f) builds it in place: it allocates the concatenation once and each
+part's epilogue stores the part into its channel slice, with the residual
+add of a Bottleneck, an ABlock's MLP and A2C2f's ``x + gamma * y`` folded
+into the epilogue of the ConvBN that produces it. An ABlock's attention
+residual stays a separate add: ``AAttn.forward`` takes ``x`` alone. A part that the next
+module reads is also stored packed, since cuDNN reads packed inputs.
+Each block's ``forward_plain`` is the form with ``torch.cat`` and separate
+adds: the training path (``fused`` unset), and the reference the in-place
+form is held to, bit for bit.
 
 Layout: shapes are NCHW, and every module keeps its input's memory order.
 Training runs NCHW (contiguous) tensors. On the card the detector holds
@@ -128,8 +138,11 @@ class ConvBN(nn.Module):
     """Conv2d (no bias) + BatchNorm + SiLU. With ``fused`` set (the
     detector's folded weights), the folded BatchNorm is the bias, added to
     the convolution's output in the input's dtype as the JAX package's
-    FoldedBN adds it, and SiLU follows: both in one in-place pass
-    (``ops/epilogue.py``; channels-last on the card), with no backward."""
+    FoldedBN adds it, and SiLU follows: both in one pass
+    (``ops/epilogue.py``; channels-last on the card), with no backward,
+    which also takes ``scale * y`` and ``residual + y`` and stores the
+    result in place or to the destinations ``outs`` (``(tensor, first
+    channel)`` pairs). Those three arguments are for a fused ConvBN only."""
 
     def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1,
                  g: int = 1, act: bool = True):
@@ -139,11 +152,55 @@ class ConvBN(nn.Module):
         self.act = act
         self.fused = False
 
-    def forward(self, x):
+    def forward(self, x, outs=(), residual=None, scale=None):
         if self.fused:
-            return bias_silu_nhwc(self.conv(x), self.bn.bias, self.act)
+            return bias_silu_nhwc(self.conv(x), self.bn.bias, self.act,
+                                  outs, residual, scale)
+        if outs or residual is not None or scale is not None:
+            raise ValueError("ConvBN: outs, residual and scale need a "
+                             "fused ConvBN")
         x = self.bn(self.conv(x))
         return F.silu(x) if self.act else x
+
+
+def concat_buffer(x: torch.Tensor, channels: int) -> torch.Tensor:
+    """An empty [N, channels, H, W] tensor of ``x``'s batch, size, dtype
+    and device, channels-last where ``x`` is (the card's forward), else
+    NCHW: a block's concatenation, or a packed part of one."""
+    N, _, H, W = x.shape
+    fmt = (torch.channels_last if x.is_contiguous(
+        memory_format=torch.channels_last) else torch.contiguous_format)
+    return torch.empty((N, channels, H, W), dtype=x.dtype, device=x.device,
+                       memory_format=fmt)
+
+
+def run_into(m: nn.Module, x: torch.Tensor, outs) -> torch.Tensor:
+    """``m(x)`` with its result stored to ``outs``: an ``nn.Sequential``
+    hands them to its last module."""
+    if isinstance(m, nn.Sequential):
+        for block in m[:-1]:
+            x = block(x)
+        m = m[-1]
+    return m(x, outs)
+
+
+def grow_in_place(cv1: ConvBN, ms, x: torch.Tensor, c: int) -> torch.Tensor:
+    """The concatenation of a C2f-style block (C3k2, A2C2f) built in
+    place: ``cv1(x)`` and each module of ``ms`` (c channels each, chained
+    on the last c channels of the one before) stored into their slices of
+    one buffer; every part but the last also packed for the module that
+    reads it, and dropped once that module has run. Returns the buffer."""
+    k = cv1.conv.out_channels
+    buf = concat_buffer(x, k + len(ms) * c)
+    part = concat_buffer(x, c)
+    cv1(x, [(buf[:, :k], 0), (part, k - c)])
+    for i, m in enumerate(ms):
+        outs = [(buf[:, k + i * c:k + (i + 1) * c], 0)]
+        if i < len(ms) - 1:
+            outs.append((concat_buffer(x, c), 0))
+        run_into(m, part, outs)
+        part = outs[-1][0]
+    return buf
 
 
 class Bottleneck(nn.Module):
@@ -155,7 +212,12 @@ class Bottleneck(nn.Module):
         self.cv2 = ConvBN(c_, c2, k[1])
         self.add = shortcut and c1 == c2
 
-    def forward(self, x):
+    def forward(self, x, outs=()):
+        if not self.cv2.fused:
+            return self.forward_plain(x)
+        return self.cv2(self.cv1(x), outs, x if self.add else None)
+
+    def forward_plain(self, x):
         y = self.cv2(self.cv1(x))
         return x + y if self.add else y
 
@@ -173,7 +235,16 @@ class C3k(nn.Module):
         self.m = nn.Sequential(*(Bottleneck(c_, c_, shortcut, (k, k), 1.0)
                                  for _ in range(n)))
 
-    def forward(self, x):
+    def forward(self, x, outs=()):
+        if not self.cv3.fused:
+            return self.forward_plain(x)
+        c = self.cv1.conv.out_channels
+        buf = concat_buffer(x, 2 * c)
+        run_into(self.m, self.cv1(x), [(buf[:, :c], 0)])
+        self.cv2(x, [(buf[:, c:], 0)])
+        return self.cv3(buf, outs)
+
+    def forward_plain(self, x):
         return self.cv3(torch.cat([self.m(self.cv1(x)), self.cv2(x)], 1))
 
 
@@ -192,6 +263,11 @@ class C3k2(nn.Module):
             else Bottleneck(c, c, shortcut, (3, 3), 0.5) for _ in range(n))
 
     def forward(self, x):
+        if not self.cv2.fused:
+            return self.forward_plain(x)
+        return self.cv2(grow_in_place(self.cv1, self.m, x, self.c))
+
+    def forward_plain(self, x):
         ys = list(self.cv1(x).split(self.c, 1))
         for m in self.m:
             ys.append(m(ys[-1]))
@@ -350,7 +426,13 @@ class ABlock(nn.Module):
         self.mlp = nn.Sequential(ConvBN(dim, hidden, 1),
                                  ConvBN(hidden, dim, 1, act=False))
 
-    def forward(self, x):
+    def forward(self, x, outs=()):
+        if not self.mlp[1].fused:
+            return self.forward_plain(x)
+        x = x + self.attn(x)
+        return self.mlp[1](self.mlp[0](x), outs, x)
+
+    def forward_plain(self, x):
         x = x + self.attn(x)
         return x + self.mlp(x)
 
@@ -380,6 +462,14 @@ class A2C2f(nn.Module):
             if a2 else C3k(c_, c_, 2, True) for _ in range(n))
 
     def forward(self, x):
+        if not self.cv2.fused:
+            return self.forward_plain(x)
+        y = grow_in_place(self.cv1, self.m, x, self.cv1.conv.out_channels)
+        if self.gamma is None:
+            return self.cv2(y)
+        return self.cv2(y, residual=x, scale=self.gamma)
+
+    def forward_plain(self, x):
         ys = [self.cv1(x)]
         for m in self.m:
             ys.append(m(ys[-1]))

@@ -67,7 +67,8 @@ class YOLO11OBB(nn.Module):
     [B, 4*reg_max | nc | ne, Hi, Wi] in the input's dtype, the compute
     dtype (``layers.py``). ``fused_bn=True`` runs the fused
     conv + bias graph, for BN-folded weights (``fold.py``): each ConvBN
-    finished by one in-place bias + SiLU pass (``ops/epilogue.py``), for
+    finished by one bias + SiLU pass (``ops/epilogue.py``), which also
+    builds the blocks' concatenations in place (``layers.py``), for
     inference only."""
 
     def __init__(self, nc: int = 12, scale: str = "x", in_channels: int = 3,

@@ -184,8 +184,9 @@ def test_channels_last_forward_matches_nchw(folded_n, dtype):
 def test_detector_forward_is_channels_last_end_to_end():
     """A CPU detector is NCHW, today's layout; with its models and input
     layout set as on the card, every fused ConvBN of both scales takes a
-    channels-last input and gives a dense channels-last output, and the
-    rows are the NCHW detector's."""
+    channels-last input and gives a channels-last output (dense, or a
+    channel slice of a block's channels-last concatenation), and the rows
+    are the NCHW detector's."""
     gen_map = pytest.importorskip("tools.train_synthetic").gen_map
     image = gen_map(np.random.RandomState(4), H=300, W=340, n_obj=12)[0]
     scales = [(128, 30, CKPT128),
@@ -202,7 +203,9 @@ def test_detector_forward_is_channels_last_end_to_end():
 
     def hook(mod, inp, out):
         seen.append((channels_innermost(inp[0]),
-                     out.is_contiguous(memory_format=CL)))
+                     out.is_contiguous(memory_format=CL)
+                     or channels_innermost(out) and out.stride(0)
+                     > out[0].numel()))
 
     units = [m for model in det.models.values() for m in model.modules()
              if isinstance(m, TL.ConvBN)]
