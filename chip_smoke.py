@@ -1,11 +1,23 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port on one NVIDIA card.
+"""The port's check on one NVIDIA card.
 
-    python3 chip_smoke.py [--profile MAPS]
+    python3 chip_smoke.py
+
+This script holds the port to its plain versions, to the CPU and to its
+own other paths on the card. Besides those checks it measures only what
+no metric of the benchmark (``obbbench/``, ``BENCHMARK.json``) gives: the
+kernel table of ``PERF.md`` (each kernel's device time beside its plain
+version's, its bytes bound and its ``-Xptxas -v`` report), the device
+time of one forward by kernel (``forward_kernels``, the attribution
+``PERF.md`` section 5 is built from), and the seconds a step, collectives
+and memory of the ``dist`` and ``model_axis`` phases (a cell runs one
+process). End-to-end timings (seconds a map, a sheet or a step, idle
+share, peak memory, stage totals) belong to the benchmark's cells, and
+this script takes none.
 
 Phases, each printing one JSON line (warnings go to stderr). The port
 computes in bf16 by default, as the JAX package does; every phase but
-``bf16``, ``model_axis`` and the dist phase's bf16 run pins
+``forward``, ``bf16``, ``model_axis`` and the dist phase's bf16 run pins
 ``compute_dtype="float32"`` (``F32``), so its float32 equalities and
 bounds hold as before:
 
@@ -28,65 +40,54 @@ bounds hold as before:
              masks of the synthetic map below (with K2's time per tile);
              then bit-equality alone on shapes that cut the kernels' tiles
              raggedly, and that one ``edt_l2`` call is two device kernels.
-   epilogue - the fused ConvBN's epilogue kernel (``csrc/epilogue.cu``)
-             in the x-scale dual detector's channels-last forward at a
-             4096x4096 sheet's chunk of each scale (1764 tiles of 128, 169
-             of 416), bf16 and float32: each fused ConvBN's kernel output
-             bit-equal to its plain version on the same conv output, one
-             launch a fused ConvBN; in bf16 a profiled forward of each
-             scale with no cuDNN layout transpose (any layout kernel left
-             reported with its time) whose span holds the launch of every
-             epilogue kernel, and the epilogues' device time beside
-             the plain version's, the library's and the bytes bound; one
-             ``detect_image`` launching it once a fused ConvBN a forward.
-   yolo12  - YOLO12x-OBB (seeded random weights) in the channels-last
-             bf16 detector at 1024/200: the epilogue kernel bit-equal to
-             its plain version at channel counts no multiple of 8 (460,
-             307, 12); on a sheet's 25 tiles each fused ConvBN's epilogue
-             bit-equal and launched once (211 a forward), ``AREA_ATTN``
-             (16 calls, 40 areas, 40,960 tokens a tile), no cuDNN layout
-             transpose, the forward's device ms and the kernels of its
-             ``forward_area_attn`` spans with their ms (which attention
-             backend ran), and one ``detect_image``.
-   concat_in_place - the blocks' concatenations built in place: the
-             epilogue kernel bit-equal to its plain version in every mode
-             (in place, two destinations, a residual, a residual that is a
-             channel slice, a residual with a scale) at 16-, 8-, 4- and
-             2-byte vectors; at a sheet's chunk of each YOLO11x dual scale
-             and a sheet's 25 YOLO12x tiles, the fused forward bit-equal
-             to the ``torch.cat`` form (each block's ``forward_plain``),
-             ``STORES``, the launches and the ``torch.cat`` kernels a
-             forward, both forms' device ms and the epilogue's ms by mode.
-5. slice   - runs the 4-channel 416/100 detector on the committed
+5. forward - the fused ConvBN's epilogue kernel (``csrc/epilogue.cu``) and
+             the blocks' concatenations built in place, in the
+             channels-last detector: the kernel bit-equal to its plain
+             version in every mode (in place, two destinations, a
+             residual, a residual that is a channel slice, a residual with
+             a scale) at 16-, 8-, 4- and 2-byte vectors; then one forward
+             at a 4096x4096 sheet's chunk of each YOLO11x dual scale (1764
+             tiles of 128, 169 of 416; committed checkpoints) in bf16 and
+             in float32, and at a sheet's 25 YOLO12x tiles of 1024 (seeded
+             weights) in bf16: each fused ConvBN's kernel output bit-equal
+             to its plain version on the same conv output, one launch a
+             fused ConvBN (173 / 211 a forward); in bf16 the output
+             bit-equal to the ``torch.cat`` form (each block's
+             ``forward_plain``), ``STORES``, ``AREA_ATTN`` (YOLO12x: 16
+             calls, 40 areas, 40,960 tokens a tile), a profiled forward
+             with no cuDNN layout transpose whose span holds every
+             epilogue launch and at most 6 / 4 ``torch.cat`` kernels, its
+             device time by kernel (YOLO12x: the ``forward_area_attn``
+             spans' kernels, which name the attention backend), and the
+             epilogues' device time by mode beside the plain version's,
+             the library's and the bytes bound; then one ``detect_image``
+             a detector, launching the kernel once a fused ConvBN a
+             forward.
+6. slice   - runs the 4-channel 416/100 detector on the committed
              ``train416_4ch.ckpt`` (YOLO11n-OBB) over a seeded synthetic
              1024x1024 map (16 tiles): both kernels must launch, the
              DT-Edge tile batch must equal the plain-version one, the rows
              must be sane and agree with the same detector on the CPU, and
              the xlsx is written.
-6. profile - only with ``--profile MAPS``: the slice over MAPS warm maps
-             under ``torch.profiler``; per map, the wall time, the device's
-             busy time and idle share, the device ops, and the device time
-             by kind of kernel and of the costliest kernels.
 7. dual    - the reference's default path ``detect_dual``: YOLO11x-OBB at
              128/30 and 416/100 from the committed int8 checkpoints, 3
              channels, consensus fusion, on the same map (121 + 16 tiles).
              Both scales must give sane rows (launching no EDT kernel), the
              rows must agree with the same detector on the CPU on the map's
-             640x640 corner, the xlsx is written, one metrics-mode map is
-             scored against the map's own rectangles (the metric block,
-             finite and in [0, 1]), and the seconds per map are timed; with
-             ``--profile MAPS`` it is profiled as the slice is
-             (``dual_profile``).
+             640x640 corner, the xlsx is written, and one metrics-mode map
+             is scored against the map's own rectangles (the metric block,
+             finite and in [0, 1]).
 8. batch   - multi-map detection: the 4ch slice over four seeded maps of
              the reference's Test1/Test2 sizes and 1024x1024 twice, and
              ``detect_dual`` over eight 1024x1024 maps, each per map
              (``detect_image``), batched (``detect_images``) and streamed
              (``detect_stream``, groups of two); every map's batched and
              streamed rows pair with its per-map rows; K1 and K2 launch
-             once for the 4ch batch and once a group for the stream; per
-             mode the seconds per map, the device's idle share, peak
-             device memory and the stage totals of ``utils/profiling.py``,
-             and the host synchronizations inside the dispatch.
+             once for the 4ch batch and once a group for the stream, each
+             output bit-equal to its plain version; the host
+             synchronizations inside the dispatch; then two 4096x4096
+             sheets through ``detect_images`` in several forwards a scale,
+             their rows paired with ``detect_image``'s.
 9. crop    - ``predict_crop`` of the 4ch slice's detector on a 500x700 crop
              with the percentile and the Otsu binarization: K1 and K2
              launch once each, at the crop's shape; the rows pair with the
@@ -103,21 +104,17 @@ bounds hold as before:
 12. bf16    - the default compute dtype on every path that runs it, with
              nothing falling back to float32: ``detect_dual`` at the
              defaults over the batch phase's eight maps (every conv output
-             bf16; seconds a map one at a time and batched, peak memory,
-             device busy time; with ``--profile`` the kinds and names of
-             the kernels; rows paired with the batch phase's float32 rows
-             of the same maps, ``BF16_ROWS``; one map's metric block), the
-             4ch slice over the batch phase's four maps one at a time and
+             bf16; rows paired with the batch phase's float32 rows of the
+             same maps, ``BF16_ROWS``; one map's metric block), the 4ch
+             slice over the batch phase's four maps one at a time and
              batched (K1/K2 launched and bit-equal to their plain versions,
-             rows paired with float32; profiled with ``--profile``),
-             ``cli.py detect`` with no dtype setting (bf16 weights and conv
-             outputs, jpg and xlsx written),
-             ``train_416`` (the first step against the float32 step from
-             the same warm start and batch, ``BF16_STEP``; 4 steps of
-             ``fit``: finite losses, float32 parameters, gradients,
-             momentum, EMA and statistics, seconds a step, peak memory, two
-             profiled steps) and an n-scale bf16 step on the card against
-             the CPU's.
+             rows paired with float32), ``cli.py detect`` with no dtype
+             setting (bf16 weights and conv outputs, jpg and xlsx
+             written), ``train_416`` (the first step against the float32
+             step from the same warm start and batch, ``BF16_STEP``; 4
+             steps of ``fit``: finite losses, float32 parameters,
+             gradients, momentum, EMA and statistics) and an n-scale bf16
+             step on the card against the CPU's.
 13. train   - the training path (``Train_OBB.py``'s configuration) on four
              seeded 1024x1024 train maps (64 tiles at 416/100, labels from
              the maps' own rectangles written with ``write_labels``) and
@@ -125,10 +122,9 @@ bounds hold as before:
              (the card's machine has no cv2): YOLO11x-OBB, 3 channels, tile
              416, batch 16, warm-started from ``train416_x.ckpt``, ``fit``
              for one epoch of 4 steps with mosaic; every loss finite and fg
-             > 0 each step, parameters, EMA and BN statistics moved; seconds
-             per step, peak device memory, the device's idle share over two
-             profiled steps; ``validate_tiles`` fitness in [0, 1]; the
-             written ``last.ckpt`` detects through ``build_detector``. Then
+             > 0 each step, parameters, EMA and BN statistics moved;
+             ``validate_tiles`` fitness in [0, 1]; the written
+             ``last.ckpt`` detects through ``build_detector``. Then
              the 4-channel build of the 64 tiles (``tiles_to_4ch``: both EDT
              kernels launched, the DT channel equal to the plain versions'),
              2 steps of YOLO11n-OBB 4ch from ``train416_4ch.ckpt``; last one
@@ -197,6 +193,9 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+from obbbench.harness.flops import PEAK_BYTES_PER_S, PEAK_FLOPS
+from obbbench.harness.trace import kernel_kind, union_length
+
 REPO = os.path.dirname(os.path.abspath(__file__))
 CKPT = os.path.join(REPO, "assets", "bench_ckpts", "train416_4ch.ckpt")
 TRAIN_CKPT = os.path.join(REPO, "assets", "bench_ckpts", "train416_x.ckpt")
@@ -205,7 +204,6 @@ STEP_CKPT = os.path.join(REPO, "assets", "bench_ckpts", "train128.ckpt")
 DUAL = tuple((ts, ov, os.path.join(REPO, "assets", "bench_ckpts",
                                    f"train{ts}_x.ckpt"))
              for ts, ov in ((128, 30), (416, 100)))
-CSRC = os.path.join(REPO, "oriented_object_detection_tpu_torch", "csrc")
 KERNELS = ("edt_pass1_columns", "edt_pass2_rows")
 EPILOGUE_KERNELS = ("bias_silu_nhwc",)
 # shapes that cut K1's 32-column strips and 32-row segments (4097 rows
@@ -213,13 +211,11 @@ EPILOGUE_KERNELS = ("bias_silu_nhwc",)
 # row wide enough for the shared-memory opt-in
 RAGGED_SHAPES = ((3, 37, 53), (2, 4097, 33), (1, 1, 700), (5, 416, 1),
                  (1, 4, 20000), (1, 500, 700))
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 # per-SM limits of sm_90, as the CUDA occupancy calculator has them
 SM_THREADS, SM_BLOCKS, SM_REGS, SM_SMEM = 2048, 32, 65536, 233472
 SM_REG_UNIT = 256             # registers allocated per warp in these units
 SM_SMEM_UNIT = 128            # shared memory allocated in these units
 SM_SMEM_RESERVED = 1024       # shared memory the system takes per block
-FP32_FLOPS = 67e12            # same, float32 outside the tensor cores
 # the TPU kernels each CUDA kernel replaces
 # every phase but the bf16 one pins float32: they hold the float32
 # equalities and bounds of the work before bf16 became the default
@@ -353,8 +349,8 @@ def pass2_operations(d0, dist) -> float:
 
 
 def bound(nbytes: float, ops: float) -> dict:
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FLOPS["float32"] * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -594,21 +590,7 @@ def check_xlsx(rows: np.ndarray) -> None:
         raise AssertionError("xlsx does not hold every row")
 
 
-def seconds_per_map(torch, det, img, maps: int = 5) -> list:
-    """Wall seconds of ``maps`` warm ``detect_image`` calls, each ended by a
-    device synchronize, after one call to warm up."""
-    det.detect_image(img)
-    times = []
-    for _ in range(maps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        det.detect_image(img)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    return times
-
-
-def phase_slice(torch, E, img) -> tuple:
+def phase_slice(torch, E, img) -> dict:
     from oriented_object_detection_tpu_torch.infer.pipeline import (
         build_detector)
     from oriented_object_detection_tpu_torch.ops import dtedge as DT
@@ -619,8 +601,7 @@ def phase_slice(torch, E, img) -> tuple:
     sc = det.cfg.scales[0]
     grid = T.inference_tile_grid(H, W, sc.tile_size, sc.overlap)
 
-    for k in E.LAUNCHES:
-        E.LAUNCHES[k] = 0
+    reset_launches(E)
     res = det.detect_image(img)
     torch.cuda.synchronize()
     launches = dict(E.LAUNCHES)
@@ -642,21 +623,39 @@ def phase_slice(torch, E, img) -> tuple:
     match_rows(rows, cpu_rows)
     match_rows(cpu_rows, rows)
     check_xlsx(rows)
-
-    times = seconds_per_map(torch, det, img)
-    out = {"phase": "slice", "map": [H, W], "tiles": len(grid),
-           "rows": len(rows), "cpu_rows": len(cpu_rows),
-           "launches": launches, "dt_edge_bit_equal": True,
-           "seconds_per_map": statistics.median(times),
-           "seconds_per_map_all": times}
-    emit(out)
-    return det, out
+    emit({"phase": "slice", "map": [H, W], "tiles": len(grid),
+          "rows": len(rows), "cpu_rows": len(cpu_rows),
+          "launches": launches, "dt_edge_bit_equal": True})
+    return launches
 
 
-def phase_dual(torch, E, img, gt) -> object:
-    """The reference's default path on the card: rows, agreement with the
-    CPU, the xlsx, one metrics-mode map and the seconds per map."""
+def metric_block(cfg, res, gt, label: str) -> dict:
+    """The metric block of one metrics-mode map's results ``res`` against
+    the map's own rectangles ``gt``; raises unless it holds 8 entries, all
+    finite and in [0, 1]. The input folder holds an empty file of the
+    map's name (the GT loader reads no pixels, and the card's machine has
+    no cv2)."""
     from oriented_object_detection_tpu_torch.eval import metrics as M
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "map.png")
+        open(path, "wb").close()
+        block = M.run_fusion_eval(
+            {path: res["merged_for_pr"]}, tmp, tmp,
+            iou_thr=cfg.metrics_iou,
+            dets_map={path: res["merged_for_map"]},
+            cache=M.GTCache(loader=lambda _: gt),
+            map_min_score=cfg.map_min_score)
+    numbers = [v for v in block.values() for v in np.ravel(v)]
+    if len(block) != 8 or not all(np.isfinite(v) and 0.0 <= v <= 1.0
+                                  for v in numbers):
+        raise AssertionError(f"{label}: metric block out of range: {block}")
+    return block
+
+
+def phase_dual(torch, E, img, gt) -> None:
+    """The reference's default path on the card: rows, agreement with the
+    CPU, the xlsx and one metrics-mode map."""
     from oriented_object_detection_tpu_torch.infer import fusion as F
     from oriented_object_detection_tpu_torch.infer.pipeline import (
         build_detector)
@@ -669,8 +668,7 @@ def phase_dual(torch, E, img, gt) -> object:
     tiles = {sc.tile_size: len(T.inference_tile_grid(H, W, sc.tile_size,
                                                      sc.overlap))
              for sc in det.cfg.scales}
-    for k in E.LAUNCHES:
-        E.LAUNCHES[k] = 0
+    reset_launches(E)
     res = det.detect_image(img)
     torch.cuda.synchronize()
     launches = dict(E.LAUNCHES)
@@ -696,26 +694,9 @@ def phase_dual(torch, E, img, gt) -> object:
         match_rows(a["merged_for_pr"], b["merged_for_pr"],
                    skip_near=(F.CONS_LOW, F.CONS_HIGH))
 
-    # one metrics-mode map against the map's own rectangles; the input
-    # folder holds an empty file of the map's name (the GT loader reads no
-    # pixels, and the card's machine has no cv2)
     mdet = build_detector(DUAL, calculate_metrics=True, **F32)
     mres = mdet.detect_image(img)
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "map.png")
-        open(path, "wb").close()
-        block = M.run_fusion_eval(
-            {path: mres["merged_for_pr"]}, tmp, tmp,
-            iou_thr=mdet.cfg.metrics_iou,
-            dets_map={path: mres["merged_for_map"]},
-            cache=M.GTCache(loader=lambda _: gt),
-            map_min_score=mdet.cfg.map_min_score)
-    numbers = [v for v in block.values() for v in np.ravel(v)]
-    if len(block) != 8 or not all(np.isfinite(v) and 0.0 <= v <= 1.0
-                                  for v in numbers):
-        raise AssertionError(f"metric block out of range: {block}")
-
-    times = seconds_per_map(torch, det, img)
+    block = metric_block(mdet.cfg, mres, gt, "dual")
     emit({"phase": "dual", "map": [H, W], "tiles": tiles,
           "model_scale": "x", "edt_launches": launches,
           "rows": {str(ts): len(r) for ts, r in res["by_scale"].items()},
@@ -728,78 +709,7 @@ def phase_dual(torch, E, img, gt) -> object:
                                        len(cpu["merged_for_pr"])]},
           "metrics": {"rows_for_map": len(mres["merged_for_map"]),
                       "gt": len(gt), **{k: np.ravel(v).tolist()
-                                        for k, v in block.items()}},
-          "seconds_per_map": statistics.median(times),
-          "seconds_per_map_all": times})
-    return det
-
-
-# kinds of device work, by a substring of the kernel's name (first match)
-KERNEL_KINDS = (
-    ("edt", ("edt_pass",)),
-    ("conv_matmul", ("conv", "gemm", "xmma", "cudnn", "cutlass", "sm90_",
-                     "implicit", "winograd")),
-    ("sort", ("sort", "radix")),
-    ("copy", ("memcpy", "memset")),
-)
-
-
-def kernel_kind(name: str) -> str:
-    low = name.lower()
-    for kind, keys in KERNEL_KINDS:
-        if any(k in low for k in keys):
-            return kind
-    return "elementwise_other"
-
-
-def busy_ms(intervals) -> float:
-    """Length of the union of [start, end] microsecond intervals, in ms."""
-    total, end = 0.0, float("-inf")
-    for s, e in sorted(intervals):
-        if e > end:
-            total += e - max(s, end)
-            end = e
-    return total / 1e3
-
-
-def phase_profile(torch, det, img, maps: int, phase: str) -> None:
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    def run():
-        walls = []
-        for _ in range(maps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            det.detect_image(img)
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-        return walls
-
-    walls = run()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        walls_profiled = run()
-    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not ops:
-        raise AssertionError("the profiler recorded no device work")
-    busy = busy_ms((e.time_range.start, e.time_range.end) for e in ops)
-    by_kind, by_name = {}, {}
-    for e in ops:
-        ms = (e.time_range.end - e.time_range.start) / 1e3 / maps
-        kind = kernel_kind(e.name)
-        by_kind[kind] = by_kind.get(kind, 0.0) + ms
-        by_name[e.name] = by_name.get(e.name, 0.0) + ms
-    wall_ms = statistics.median(walls) * 1e3
-    emit({"phase": phase, "maps": maps,
-          "seconds_per_map": wall_ms / 1e3, "seconds_per_map_all": walls,
-          "seconds_per_map_profiled": statistics.median(walls_profiled),
-          "device_busy_ms": busy / maps,
-          "idle_share": 1.0 - busy / maps / wall_ms,
-          "device_ops_per_map": len(ops) / maps,
-          "device_ms_by_kind": by_kind,
-          "top_kernels": [{"name": k[:90], "device_ms": v} for k, v in
-                          sorted(by_name.items(), key=lambda kv: -kv[1])[:12]]})
+                                        for k, v in block.items()}}})
 
 
 # ---------------------------------------------------------------------------
@@ -809,10 +719,25 @@ def phase_profile(torch, det, img, maps: int, phase: str) -> None:
 # tiles of a 4096x4096 sheet at each dual scale: one forward each (the
 # chunks of ``detect_stream`` on the benchmark's sheets)
 SHEET_TILES = {128: 1764, 416: 169}
+# YOLO12x-OBB at the DOTA split: one forward holds a 4096x4096 sheet's tiles
+YOLO12_TILE, YOLO12_OVERLAP, YOLO12_SHEET_TILES = 1024, 200, 25
+# a bf16 forward of each architecture: ``STORES`` (epilogues storing into a
+# concatenation's slice, residuals folded), the ``torch.cat`` kernels left
+# outside the blocks (the head's four, YOLO11's SPPF and C2PSA; PyTorch
+# copies a concatenation of strided parts without its cat kernel) and
+# ``AREA_ATTN``'s calls, and its areas and tokens a tile
+FORWARD_EXPECT = {
+    "yolo11x": {"stores": {"concat_parts": 56, "residual_folds": 32},
+                "cats_left": 6, "area_attn": (0, 0, 0)},
+    "yolo12x": {"stores": {"concat_parts": 52, "residual_folds": 42},
+                "cats_left": 4, "area_attn": (16, 40, 40960)}}
 # cuDNN's layout transposes around its NHWC kernels
 LAYOUT_KERNELS = ("nchwToNhwc", "nhwcToNchw")
 # PyTorch's torch.cat kernel
 CAT_KERNEL = "CatArrayBatchedCopy"
+# names of the attention kernels of scaled_dot_product_attention's fused
+# backends (flash, memory-efficient, cuDNN)
+SDPA_FUSED = ("flash", "fmha", "attention", "cudnn", "mem_eff")
 
 
 def sheet_chunk(torch, det, img, ts: int, n: int | None = None):
@@ -933,9 +858,9 @@ def epilogue_times(torch, TL, EP, model, x) -> dict:
                 row["launches"] += 1
                 row["bytes"] += nbytes
     out["bytes"] = sum(row["bytes"] for row in by_mode.values())
-    out["bound_ms"] = out["bytes"] / HBM_BYTES_PER_S * 1e3
+    out["bound_ms"] = out["bytes"] / PEAK_BYTES_PER_S * 1e3
     for row in by_mode.values():
-        row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
+        row["bound_ms"] = row["bytes"] / PEAK_BYTES_PER_S * 1e3
     out["by_mode"] = by_mode
     return out
 
@@ -1022,9 +947,11 @@ def forward_kernels(torch, model, x) -> dict:
     ``obb/forward`` as ``TiledDetector`` opens it: device ms by kind and by
     kernel, the epilogue kernel's launches, those of them that the span
     holds, the ``torch.cat`` kernels, every kernel whose name speaks of a
-    layout (NCHW/NHWC, transpose) with its ms, and the elementwise kernels
+    layout (NCHW/NHWC, transpose) with its ms, the elementwise kernels
     by the layer and the operator that launched them (``elementwise_ops``,
-    the layers in ``layer_spans``)."""
+    the layers in ``layer_spans``), and the kernels of the
+    ``forward_area_attn`` spans with their ms and the attention backend
+    they name (none in a model without area attention)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from oriented_object_detection_tpu_torch.utils import profiling as P
@@ -1038,6 +965,11 @@ def forward_kernels(torch, model, x) -> dict:
                 model(x)
             torch.cuda.synchronize()
     in_span = kernels_in_span(prof, P.SPAN_PREFIX + "forward")
+    attn = P.SPAN_PREFIX + "forward_area_attn"
+    attn_ms, attn_launches = (kernels_in_span(prof, attn, ms=True),
+                              kernels_in_span(prof, attn))
+    sdpa = sorted({k[:120] for k in attn_ms
+                   if any(t in k.lower() for t in SDPA_FUSED)})
     ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA
            and not e.name.startswith(P.SPAN_PREFIX)]
     if not ops:
@@ -1051,8 +983,8 @@ def forward_kernels(torch, model, x) -> dict:
         count[e.name] = count.get(e.name, 0) + 1
     layout = {k[:120]: v for k, v in by_name.items()
               if re.search("nchw|nhwc|transpose", k, re.IGNORECASE)}
-    return {"device_ms": busy_ms((e.time_range.start, e.time_range.end)
-                                 for e in ops),
+    return {"device_ms": union_length((e.time_range.start, e.time_range.end)
+                                      for e in ops) / 1e3,
             "device_ops": len(ops), "device_ms_by_kind": by_kind,
             "epilogue_launches": sum(n for k, n in count.items()
                                      if "bias_silu_nhwc" in k),
@@ -1066,200 +998,20 @@ def forward_kernels(torch, model, x) -> dict:
             "elementwise_ops": elementwise_ops(prof),
             "top_kernels": [{"name": k[:120], "ms": v, "launches": count[k]}
                             for k, v in sorted(by_name.items(),
-                                               key=lambda kv: -kv[1])[:15]]}
-
-
-def phase_epilogue(torch, img) -> dict:
-    """The fused ConvBN's epilogue kernel (``csrc/epilogue.cu``) in the
-    x-scale dual detector's channels-last forward, bf16 and float32: at a
-    4096x4096 sheet's chunk of each scale, every fused ConvBN's kernel
-    output bit-equal to the plain version on the same conv output, one
-    launch a fused ConvBN; in bf16 a profiled forward of each scale (no
-    cuDNN layout transpose may remain; any layout kernel left is reported
-    with its time) and the epilogues' device time beside the plain
-    version's, the library's and the bytes bound; then one
-    ``detect_image`` launching the kernel once a fused ConvBN a forward."""
-    from oriented_object_detection_tpu_torch.infer.pipeline import (
-        build_detector)
-    from oriented_object_detection_tpu_torch.models import layers as TL
-    from oriented_object_detection_tpu_torch.ops import epilogue as EP
-
-    t0 = time.perf_counter()
-    EP.kernel_library()
-    out = {"build_s": time.perf_counter() - t0}
-    for dtype, fields in (("bf16", {}), ("float32", F32)):
-        det = build_detector(DUAL, **fields)
-        if det.layout != torch.channels_last:
-            raise AssertionError(f"the card's detector is not channels-last: "
-                                 f"{det.layout}")
-        fused = {ts: sum(isinstance(m, TL.ConvBN) and m.fused
-                         for m in model.modules())
-                 for ts, model in det.models.items()}
-        for ts, model in det.models.items():
-            x = sheet_chunk(torch, det, img, ts)
-            seen = []
-            checked = checked_epilogue(torch, EP, f"{dtype} tile {ts}", seen)
-            before = EP.LAUNCHES["bias_silu_nhwc"]
-            with torch.inference_mode(), epilogue_as(TL, checked):
-                model(x)
-            torch.cuda.synchronize()
-            launched = EP.LAUNCHES["bias_silu_nhwc"] - before
-            if not launched == len(seen) == fused[ts]:
-                raise AssertionError(f"{dtype} tile {ts}: {launched} "
-                                     f"launches, {len(seen)} calls, "
-                                     f"{fused[ts]} fused ConvBNs")
-            row = {"tiles": SHEET_TILES[ts], "fused_convbn": fused[ts],
-                   "launches": launched, "bit_equal": True,
-                   "largest": max((sh for sh, _ in seen), key=np.prod)}
-            if dtype == "bf16":
-                row["epilogue"] = epilogue_times(torch, TL, EP, model, x)
-                row["forward"] = forward_kernels(torch, model, x)
-                if row["forward"]["cudnn_transposes"]:
-                    raise AssertionError(
-                        f"tile {ts}: cuDNN layout transposes in the "
-                        f"forward: {row['forward']['cudnn_transposes']}")
-                for key in ("epilogue_launches", "epilogue_launches_in_span"):
-                    if row["forward"][key] != fused[ts]:
-                        raise AssertionError(
-                            f"tile {ts}: {key} {row['forward'][key]}, not "
-                            f"{fused[ts]}")
-            out[f"{dtype}_{ts}"] = row
-            emit({"phase": "epilogue", "dtype": dtype, "tile": ts, **row})
-            del x
-        before = EP.LAUNCHES["bias_silu_nhwc"]
-        det.detect_image(img)
-        torch.cuda.synchronize()
-        launched = EP.LAUNCHES["bias_silu_nhwc"] - before
-        if launched != sum(fused.values()):
-            raise AssertionError(f"{dtype} detect_image: {launched} "
-                                 f"launches, not {sum(fused.values())}")
-        out[f"{dtype}_detect_image_launches"] = launched
-        del det
-    emit({"phase": "epilogue", "build_s": out["build_s"],
-          "detect_image_launches": {k: v for k, v in out.items()
-                                    if k.endswith("_launches")}})
-    return out
-
-
-# YOLO12x-OBB at the DOTA split: one forward holds a 4096x4096 sheet's tiles
-YOLO12_TILE, YOLO12_OVERLAP, YOLO12_SHEET_TILES = 1024, 200, 25
-# channel counts whose pixel rows are no multiple of 16 bytes: YOLO12's MLP
-# at x (460) and at l (307), a head's class conv (12)
-EPILOGUE_ODD_CHANNELS = (460, 307, 12)
-# names of the attention kernels of scaled_dot_product_attention's fused
-# backends (flash, memory-efficient, cuDNN)
-SDPA_FUSED = ("flash", "fmha", "attention", "cudnn", "mem_eff")
-
-
-def phase_yolo12(torch, img) -> dict:
-    """YOLO12x-OBB (seeded random weights, ``random_variables(...,
-    arch="yolo12")``) in the channels-last bf16 detector at 1024/200: the
-    epilogue kernel bit-equal to its plain version at channel counts that
-    are no multiple of 8 (its 8-, 4- and 2-byte vectors); on a sheet's 25
-    tiles, every fused ConvBN's epilogue bit-equal to its plain version and
-    launched once (211 a forward), ``AREA_ATTN`` (16 calls, 40 areas and
-    40,960 tokens a tile), no cuDNN layout transpose, the device time of
-    the forward and of its ``forward_area_attn`` spans by kernel, which
-    names the attention backend that ran; then one ``detect_image``."""
-    from oriented_object_detection_tpu_torch.config import (DetectConfig,
-                                                          ScaleConfig)
-    from oriented_object_detection_tpu_torch.infer.pipeline import (
-        TiledDetector, random_variables)
-    from oriented_object_detection_tpu_torch.models import layers as TL
-    from oriented_object_detection_tpu_torch.ops import epilogue as EP
-    from oriented_object_detection_tpu_torch.utils import profiling as P
-    from torch.profiler import ProfilerActivity, profile
-
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    odd = {}
-    for c in EPILOGUE_ODD_CHANNELS:
-        for dtype in (torch.bfloat16, torch.float32):
-            y = torch.randn(3, c, 17, 19, device="cuda", generator=gen).to(
-                dtype, memory_format=torch.channels_last)
-            bias = torch.randn(c, device="cuda", generator=gen)
-            for act in (True, False):
-                ref = EP.bias_silu_nhwc_plain(y.clone(), bias, act)
-                if not torch.equal(EP.bias_silu_nhwc(y.clone(), bias, act),
-                                   ref):
-                    raise AssertionError(f"bias_silu_nhwc {dtype} C={c} act "
-                                         f"{act} differs from its plain "
-                                         f"version")
-        odd[c] = "bit_equal"
-    ts = YOLO12_TILE
-    cfg = DetectConfig(scales=(ScaleConfig(ts, YOLO12_OVERLAP,
-                                           model_scale="x", arch="yolo12"),))
-    t0 = time.perf_counter()
-    det = TiledDetector(cfg, {ts: random_variables(12, "x", 3, seed=0,
-                                                   arch="yolo12")})
-    build_s = time.perf_counter() - t0
-    model = det.models[ts]
-    if det.layout != torch.channels_last or det.dtype != torch.bfloat16:
-        raise AssertionError(f"detector {det.layout} {det.dtype}")
-    fused = sum(isinstance(m, TL.ConvBN) and m.fused
-                for m in model.modules())
-    x = sheet_chunk(torch, det, img, ts, YOLO12_SHEET_TILES)
-    seen = []
-    checked = checked_epilogue(torch, EP, "yolo12x", seen)
-    before = EP.LAUNCHES["bias_silu_nhwc"]
-    attn0 = dict(TL.AREA_ATTN)
-    with torch.inference_mode(), epilogue_as(TL, checked):
-        model(x)
-    torch.cuda.synchronize()
-    launched = EP.LAUNCHES["bias_silu_nhwc"] - before
-    area = {k: TL.AREA_ATTN[k] - attn0[k] for k in attn0}
-    n = YOLO12_SHEET_TILES
-    if launched != fused or area != {"calls": 16, "areas": 40 * n,
-                                     "tokens": 40960 * n}:
-        raise AssertionError(f"{launched} epilogue launches for {fused} "
-                             f"fused ConvBNs; AREA_ATTN {area}")
-    row = {"tiles": n, "fused_convbn": fused, "epilogue_launches": launched,
-           "area_attn": area, "epilogue_bit_equal": True,
-           "odd_channel_counts_seen": sorted({sh[1] for sh, _ in seen
-                                              if sh[1] % 8}),
-           "build_s": build_s}
-    row["forward"] = forward_kernels(torch, model, x)
-    if row["forward"]["cudnn_transposes"]:
-        raise AssertionError(f"cuDNN layout transposes in the forward: "
-                             f"{row['forward']['cudnn_transposes']}")
-    with torch.inference_mode():
-        row["forward_ms"] = device_ms(lambda: model(x), reps=3)
-        model(x)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            model(x)
-            torch.cuda.synchronize()
-    span = P.SPAN_PREFIX + "forward_area_attn"
-    by_name = kernels_in_span(prof, span, ms=True)
-    launches = kernels_in_span(prof, span)
-    row["area_attn_ms"] = sum(by_name.values())
-    row["area_attn_kernels"] = [
-        {"name": k[:120], "ms": v, "launches": launches[k]}
-        for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])]
-    fused_sdpa = sorted({k[:120] for k in by_name
-                         if any(t in k.lower() for t in SDPA_FUSED)})
-    row["sdpa_backend"] = ("fused: " + "; ".join(fused_sdpa) if fused_sdpa
-                           else "math (matmul + softmax kernels)")
-    del x
-    before = EP.LAUNCHES["bias_silu_nhwc"]
-    calls = TL.AREA_ATTN["calls"]
-    res = det.detect_image(img)
-    torch.cuda.synchronize()
-    row["detect_image"] = {
-        "rows": int(len(res["merged_for_pr"])),
-        "epilogue_launches": EP.LAUNCHES["bias_silu_nhwc"] - before,
-        "area_attn_calls": TL.AREA_ATTN["calls"] - calls}
-    if row["detect_image"]["epilogue_launches"] != fused or \
-            row["detect_image"]["area_attn_calls"] != 16:
-        raise AssertionError(f"detect_image: {row['detect_image']}")
-    del det, model
-    emit({"phase": "yolo12", "epilogue_odd_channels": odd, **row})
-    return row
+                                               key=lambda kv: -kv[1])[:15]],
+            "area_attn_ms": sum(attn_ms.values()),
+            "area_attn_kernels": [
+                {"name": k[:120], "ms": v, "launches": attn_launches[k]}
+                for k, v in sorted(attn_ms.items(), key=lambda kv: -kv[1])],
+            "sdpa_backend": None if not attn_ms else (
+                "fused: " + "; ".join(sdpa) if sdpa
+                else "math (matmul + softmax kernels)")}
 
 
 # channel counts whose bf16 pixel rows take the epilogue's 16-, 8-, 4- and
-# 2-byte vectors (float32: 16, 16, 8, 4); 460 is YOLO12's MLP at x
-EPILOGUE_VECTOR_CHANNELS = (384, 460, 306, 307)
+# 2-byte vectors (float32: 16, 16, 8, 4), and a head's class conv (12; 8
+# and 16 bytes); 460 is YOLO12's MLP at x, 307 at l
+EPILOGUE_VECTOR_CHANNELS = (384, 460, 306, 307, 12)
 
 
 @contextlib.contextmanager
@@ -1297,8 +1049,9 @@ def epilogue_modes(torch, EP) -> dict:
             scale = torch.randn(c, device="cuda", generator=gen)
             wide = mk(c + 24)
             # the packed destination's first channel: as C3k2's cv1 at
-            # even counts, and at each count's own vector width
-            first = c - c // 16 * 8
+            # even counts, and at each count's own vector width (below 16
+            # channels, the second half)
+            first = c - (c // 16 * 8 or c // 2)
 
             def dests():
                 buf = mk(c + 16)
@@ -1328,56 +1081,79 @@ def epilogue_modes(torch, EP) -> dict:
     return checked
 
 
-def concat_forward(torch, TL, EP, model, x, label: str) -> dict:
-    """A fused channels-last forward built in place against the
-    ``torch.cat`` form (``cat_form``): bit-equal outputs, ``STORES`` and
-    ``LAUNCHES`` a forward, each form's ``torch.cat`` kernels, device ops
-    and device ms a forward, and the epilogues' device ms by mode."""
+def forward_checks(torch, TL, EP, model, x, label: str, fused: int,
+                   expect: dict | None) -> dict:
+    """One forward of ``model`` on ``x`` with every fused ConvBN's epilogue
+    through ``checked_epilogue``: each bit-equal to its plain version,
+    ``fused`` launches. With ``expect`` (``FORWARD_EXPECT``'s entry of the
+    model, in bf16) also: the output bit-equal to the ``torch.cat`` form's
+    (``cat_form``), ``STORES`` and ``AREA_ATTN`` as expected, a profiled
+    forward (``forward_kernels``) with no cuDNN layout transpose, every
+    epilogue launch inside its span and at most ``cats_left`` ``torch.cat``
+    kernels, and the epilogues' device ms by mode
+    (``epilogue_times``)."""
+    seen = []
+    checked = checked_epilogue(torch, EP, label, seen)
     with torch.inference_mode():
-        with cat_form(TL):
-            want = model(x)
+        if expect is not None:
+            with cat_form(TL):
+                want = model(x)
         EP.STORES.update(concat_parts=0, residual_folds=0)
+        attn0 = dict(TL.AREA_ATTN)
         before = EP.LAUNCHES["bias_silu_nhwc"]
-        got = model(x)
+        with epilogue_as(TL, checked):
+            got = model(x)
         torch.cuda.synchronize()
-    row = {"stores": dict(EP.STORES),
-           "launches": EP.LAUNCHES["bias_silu_nhwc"] - before}
+    launched = EP.LAUNCHES["bias_silu_nhwc"] - before
+    if not launched == len(seen) == fused:
+        raise AssertionError(f"{label}: {launched} launches, {len(seen)} "
+                             f"calls, {fused} fused ConvBNs")
+    row = {"fused_convbn": fused, "launches": launched, "bit_equal": True,
+           "largest": max((sh for sh, _ in seen), key=np.prod),
+           "odd_channel_counts_seen": sorted({sh[1] for sh, _ in seen
+                                              if sh[1] % 8})}
+    if expect is None:
+        return row
     for key in ("box", "cls", "ang"):
         for a, b in zip(want[key], got[key]):
             if not torch.equal(a, b):
                 raise AssertionError(f"{label}: the in-place forward's {key} "
                                      f"differs from the torch.cat form's")
-    row["bit_equal_to_cat_form"] = True
     del want, got
-    for form, ctx in (("cat_form", cat_form), ("in_place", None)):
-        with (ctx(TL) if ctx else contextlib.nullcontext()):
-            prof = forward_kernels(torch, model, x)
-            with torch.inference_mode():
-                torch.cuda.reset_peak_memory_stats()
-                ms = device_ms(lambda: model(x), reps=3)
-            row[form] = {
-                "forward_ms": ms, "cat_launches": prof["cat_launches"],
-                "device_ops": prof["device_ops"],
-                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-                "device_ms_by_kind": prof["device_ms_by_kind"],
-                "top_kernels": prof["top_kernels"],
-                "elementwise_ops": prof["elementwise_ops"]}
+    calls, areas, tokens = expect["area_attn"]
+    row.update(bit_equal_to_cat_form=True, stores=dict(EP.STORES),
+               area_attn={k: TL.AREA_ATTN[k] - attn0[k] for k in attn0})
+    if row["stores"] != expect["stores"] or row["area_attn"] != {
+            "calls": calls, "areas": areas * len(x),
+            "tokens": tokens * len(x)}:
+        raise AssertionError(f"{label}: STORES {row['stores']}, AREA_ATTN "
+                             f"{row['area_attn']}")
+    fwd = row["forward"] = forward_kernels(torch, model, x)
+    if fwd["cudnn_transposes"]:
+        raise AssertionError(f"{label}: cuDNN layout transposes in the "
+                             f"forward: {fwd['cudnn_transposes']}")
+    if not (fwd["epilogue_launches"] == fwd["epilogue_launches_in_span"]
+            == fused) or fwd["cat_launches"] > expect["cats_left"]:
+        raise AssertionError(
+            f"{label}: epilogue launches {fwd['epilogue_launches']}, "
+            f"{fwd['epilogue_launches_in_span']} in the span, for {fused} "
+            f"fused ConvBNs; torch.cat kernels {fwd['cat_launches']}")
     row["epilogue"] = epilogue_times(torch, TL, EP, model, x)
     return row
 
 
-def phase_concat_in_place(torch, img) -> dict:
-    """The blocks' concatenations built in place (``models/layers.py``):
-    the epilogue kernel bit-equal to its plain version in each mode at
-    16-, 8-, 4- and 2-byte vectors (``epilogue_modes``); then, in bf16 and
-    channels-last, at a 4096x4096 sheet's chunk of each YOLO11x dual scale
-    (committed checkpoints) and a sheet's 25 YOLO12x tiles of 1024
-    (seeded weights), the forward against the ``torch.cat`` form
-    (``concat_forward``): bit-equal, ``STORES`` (56 / 32 and 52 / 42 a
-    forward), one launch a fused ConvBN, the ``torch.cat`` kernels of both
-    forms (at most 6 and 4 left: the concatenations outside the blocks;
-    PyTorch copies a concatenation of strided parts without its cat
-    kernel), device ms of both forms, epilogue ms by mode."""
+def phase_forward(torch, img) -> dict:
+    """The fused ConvBN's epilogue kernel (``csrc/epilogue.cu``) and the
+    blocks' concatenations built in place (``models/layers.py``), in the
+    channels-last detector: the kernel bit-equal to its plain version in
+    each mode at 16-, 8-, 4- and 2-byte vectors (``epilogue_modes``); then
+    ``forward_checks`` at a 4096x4096 sheet's chunk of each YOLO11x dual
+    scale (committed checkpoints) in bf16 and float32 (the float32
+    detector: the epilogues and launches alone) and at a sheet's 25
+    YOLO12x tiles of 1024 (seeded weights, ``random_variables(...,
+    arch="yolo12")``) in bf16; last one ``detect_image`` a detector,
+    launching the kernel once a fused ConvBN a forward (and YOLO12x's 16
+    area attention blocks once)."""
     from oriented_object_detection_tpu_torch.config import (DetectConfig,
                                                           ScaleConfig)
     from oriented_object_detection_tpu_torch.infer.pipeline import (
@@ -1386,36 +1162,49 @@ def phase_concat_in_place(torch, img) -> dict:
     from oriented_object_detection_tpu_torch.ops import epilogue as EP
 
     out = {"modes_bit_equal": epilogue_modes(torch, EP)}
-    emit({"phase": "concat_in_place", **out})
-    # STORES a forward, and the torch.cat calls left outside the blocks (the
-    # head's four, YOLO11's SPPF and C2PSA): a bound on the cat kernels
-    expect = {"yolo11x": ({"concat_parts": 56, "residual_folds": 32}, 6),
-              "yolo12x": ({"concat_parts": 52, "residual_folds": 42}, 4)}
-    det = build_detector(DUAL)
+    emit({"phase": "forward", **out})
     ts12 = YOLO12_TILE
-    det12 = TiledDetector(DetectConfig(scales=(ScaleConfig(
-        ts12, YOLO12_OVERLAP, model_scale="x", arch="yolo12"),)),
-        {ts12: random_variables(12, "x", 3, seed=0, arch="yolo12")})
-    runs = [("yolo11x", det, ts, None) for ts in det.models] + [
-        ("yolo12x", det12, ts12, YOLO12_SHEET_TILES)]
-    for arch, d, ts, n in runs:
-        model = d.models[ts]
-        fused = sum(isinstance(m, TL.ConvBN) and m.fused
-                    for m in model.modules())
-        x = sheet_chunk(torch, d, img, ts, n)
-        row = concat_forward(torch, TL, EP, model, x, f"{arch} tile {ts}")
-        stores, cats_left = expect[arch]
-        if (row["stores"] != stores or row["launches"] != fused
-                or row["in_place"]["cat_launches"] > cats_left):
-            raise AssertionError(
-                f"{arch} tile {ts}: STORES {row['stores']}, {row['launches']}"
-                f" launches for {fused} fused ConvBNs, torch.cat kernels "
-                f"{row['cat_form']['cat_launches']} -> "
-                f"{row['in_place']['cat_launches']}")
-        out[f"{arch}_{ts}"] = row
-        emit({"phase": "concat_in_place", "model": arch, "tile": ts,
-              "tiles": len(x), **row})
-        del x
+    builds = {
+        ("yolo11x", "bf16"): lambda: build_detector(DUAL),
+        ("yolo11x", "float32"): lambda: build_detector(DUAL, **F32),
+        ("yolo12x", "bf16"): lambda: TiledDetector(
+            DetectConfig(scales=(ScaleConfig(ts12, YOLO12_OVERLAP,
+                                             model_scale="x",
+                                             arch="yolo12"),)),
+            {ts12: random_variables(12, "x", 3, seed=0, arch="yolo12")})}
+    for (arch, dtype), build in builds.items():
+        det = build()
+        if det.layout != torch.channels_last or det.dtype != {
+                "bf16": torch.bfloat16, "float32": torch.float32}[dtype]:
+            raise AssertionError(f"the card's {arch} detector is "
+                                 f"{det.layout} {det.dtype}")
+        fused = {ts: sum(isinstance(m, TL.ConvBN) and m.fused
+                         for m in model.modules())
+                 for ts, model in det.models.items()}
+        for ts, model in det.models.items():
+            x = sheet_chunk(torch, det, img, ts,
+                            YOLO12_SHEET_TILES if arch == "yolo12x" else None)
+            row = forward_checks(
+                torch, TL, EP, model, x, f"{arch} {dtype} tile {ts}",
+                fused[ts], FORWARD_EXPECT[arch] if dtype == "bf16" else None)
+            out[f"{arch}_{dtype}_{ts}"] = row
+            emit({"phase": "forward", "model": arch, "dtype": dtype,
+                  "tile": ts, "tiles": len(x), **row})
+            del x
+        before = EP.LAUNCHES["bias_silu_nhwc"]
+        calls = TL.AREA_ATTN["calls"]
+        res = det.detect_image(img)
+        torch.cuda.synchronize()
+        row = {"rows": int(len(res["merged_for_pr"])),
+               "epilogue_launches": EP.LAUNCHES["bias_silu_nhwc"] - before,
+               "area_attn_calls": TL.AREA_ATTN["calls"] - calls}
+        if row["epilogue_launches"] != sum(fused.values()) or \
+                row["area_attn_calls"] != FORWARD_EXPECT[arch]["area_attn"][0]:
+            raise AssertionError(f"{arch} {dtype} detect_image: {row}")
+        out[f"{arch}_{dtype}_detect_image"] = row
+        emit({"phase": "forward", "model": arch, "dtype": dtype,
+              "detect_image": row})
+        del det
     return out
 
 
@@ -1479,24 +1268,6 @@ class PathKernels:
         return checked
 
 
-def device_busy(torch, fn) -> tuple:
-    """(device busy ms, device ops) of one synchronized call of ``fn`` under
-    ``torch.profiler``."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not ops:
-        raise AssertionError("the profiler recorded no device work")
-    return busy_ms((e.time_range.start, e.time_range.end) for e in ops), \
-        len(ops)
-
-
 def dispatch_syncs(torch, det, maps) -> dict:
     """Host synchronizations inside a side-stream upload and the multi-map
     dispatch (the part of ``detect_stream`` that must queue without
@@ -1517,70 +1288,25 @@ def dispatch_syncs(torch, det, maps) -> dict:
     return {"count": len(msgs), "first": msgs[:2]}
 
 
-def tile_gather_seconds(torch, det, maps) -> dict:
-    """Seconds of ``ops/tiling.extract_tiles`` over every map at each of the
-    detector's scales, as the dispatch runs it: the host's time to queue
-    it, and with the device's work waited for."""
-    from oriented_object_detection_tpu_torch.ops import tiling as T
-
-    dev = [torch.from_numpy(m).cuda() for m in maps]
-    grids = [(sc.tile_size, [T.inference_tile_grid(*m.shape[:2],
-                                                   sc.tile_size, sc.overlap)
-                             for m in maps]) for sc in det.cfg.scales]
-
-    def gather():
-        return [torch.cat([T.extract_tiles(m, g, ts)
-                           for m, g in zip(dev, gs)]) for ts, gs in grids]
-
-    gather()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    tiles = gather()
-    host = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    return {"tiles": sum(len(t) for t in tiles), "host_s": host,
-            "synchronized_s": wall_seconds(torch, gather)[1]}
-
-
-def run_modes(torch, E, det, maps, reps: int = 2) -> tuple:
+def run_modes(torch, E, det, maps) -> tuple:
     """Per-map ``detect_image``, ``detect_images`` and ``detect_stream``
-    (groups of ``STREAM_CHUNK``) over ``maps``, each warmed once, then
-    driven with the launch counts set to 0 just before and read just
-    after, then timed ``reps`` more times and profiled once. Returns
-    ({mode: per-map results}, {mode: numbers})."""
-    from oriented_object_detection_tpu_torch.utils import profiling as prof
-
+    (groups of ``STREAM_CHUNK``) over ``maps``, each driven with the launch
+    counts set to 0 just before and read just after, every K1/K2 output
+    held bit-equal to its plain version. Returns ({mode: per-map results},
+    {mode: numbers})."""
     runs = {"per_image": lambda: [det.detect_image(m) for m in maps],
             "batch": lambda: det.detect_images(maps),
             "stream": lambda: list(det.detect_stream(maps,
                                                      chunk=STREAM_CHUNK))}
     results, numbers = {}, {}
     for mode, fn in runs.items():
-        fn()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        prof.reset()
         with PathKernels(E) as rec:
             reset_launches(E)
-            res, sec = wall_seconds(torch, fn)
+            results[mode] = fn()
+            torch.cuda.synchronize()
             launches = dict(E.LAUNCHES)
-        stages = {k: v["total_s"] for k, v in prof.report().items()}
-        peak = torch.cuda.max_memory_allocated()
-        bit_equal = rec.check(torch, mode)
-        times = [sec] + [wall_seconds(torch, fn)[1] for _ in range(reps)]
-        busy, ops = device_busy(torch, fn)
-        wall = statistics.median(times)
-        results[mode] = res
-        numbers[mode] = {
-            "launches": launches,
-            "seconds_per_map": wall / len(maps),
-            "seconds_per_map_all": [t / len(maps) for t in times],
-            "device_busy_ms_per_map": busy / len(maps),
-            "idle_share": 1.0 - busy / (wall * 1e3),
-            "device_ops_per_map": ops / len(maps),
-            "peak_memory_gib": peak / 2 ** 30,
-            "stage_seconds": stages,
-            "kernels_bit_equal_to_plain": bit_equal}
+        numbers[mode] = {"launches": launches,
+                         "kernels_bit_equal_to_plain": rec.check(torch, mode)}
     return results, numbers
 
 
@@ -1628,8 +1354,7 @@ def phase_batch(torch, E) -> dict:
             "tiles": sum(len(T.inference_tile_grid(h, w, 416, 100))
                          for h, w in BATCH_SHAPES),
             "rows": [len(r["merged_for_pr"]) for r in res["batch"]],
-            "dispatch_syncs": dispatch_syncs(torch, det, maps),
-            "tile_gather": tile_gather_seconds(torch, det, maps), **num}
+            "dispatch_syncs": dispatch_syncs(torch, det, maps), **num}
     emit({"phase": "batch", "part": "4ch", "model_scale": "n", **four})
     rows_4ch = [r["merged_for_pr"] for r in res["per_image"]]
     del det
@@ -1648,7 +1373,7 @@ def phase_batch(torch, E) -> dict:
               1024, 1024, ts, ov)) for ts, ov, _ in DUAL},
           "rows": [len(r["merged_for_pr"]) for r in res["batch"]],
           "dispatch_syncs": dispatch_syncs(torch, det, maps[:STREAM_CHUNK]),
-          "tile_gather": tile_gather_seconds(torch, det, maps), **num})
+          **num})
     phase_sheets(torch, det, maps)
     return {"batch": four["batch"]["launches"],
             "stream": four["stream"]["launches"],
@@ -1660,8 +1385,7 @@ def phase_sheets(torch, det, maps) -> None:
     sheets, each a 4x4 mosaic of the 1024x1024 maps, in one
     ``detect_images`` call, against ``detect_image`` of each. The tiles
     pass the network in several forwards a scale
-    (``TILE_PIXELS_PER_FORWARD``); the rows pair both ways; seconds a
-    sheet and the peak device memory of both modes."""
+    (``TILE_PIXELS_PER_FORWARD``); the rows pair both ways."""
     from oriented_object_detection_tpu_torch.infer import fusion as F
     from oriented_object_detection_tpu_torch.infer import pipeline as P
     from oriented_object_detection_tpu_torch.ops import tiling as T
@@ -1677,19 +1401,8 @@ def phase_sheets(torch, det, maps) -> None:
     if max(forwards.values()) < 2:
         raise AssertionError(f"the sheets ran in one forward a scale: "
                              f"{forwards}")
-    out = {}
-    for mode, fn in (("batch", lambda: det.detect_images(sheets)),
-                     ("per_image", lambda: [det.detect_image(s)
-                                            for s in sheets])):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        res, sec = wall_seconds(torch, fn)
-        out[mode] = {"seconds_per_sheet": sec / len(sheets),
-                     "peak_memory_gib":
-                         torch.cuda.max_memory_allocated() / 2 ** 30,
-                     "rows": [len(r["merged_for_pr"]) for r in res],
-                     "results": res}
-    results = {m: v.pop("results") for m, v in out.items()}
+    results = {"batch": det.detect_images(sheets),
+               "per_image": [det.detect_image(s) for s in sheets]}
     pair_modes(results, tiles, skip_near=(F.CONS_LOW, F.CONS_HIGH),
                modes=("batch",))
     for r in results["batch"]:
@@ -1698,7 +1411,8 @@ def phase_sheets(torch, det, maps) -> None:
           "sheets": len(sheets), "sheet": [H, W],
           "tiles_per_sheet": {str(k): v for k, v in tiles.items()},
           "forwards_batch": {str(k): v for k, v in forwards.items()},
-          **out})
+          **{mode: {"rows": [len(r["merged_for_pr"]) for r in res]}
+             for mode, res in results.items()}})
 
 
 def phase_crop(torch, E, img) -> dict:
@@ -1719,7 +1433,6 @@ def phase_crop(torch, E, img) -> dict:
         kw = {"channels": 4, "dt_edge": DTEdgeConfig(bin_method=method),
               **F32}
         det = build_detector([(416, 100, CKPT)], **kw)
-        det.predict_crop(crop)
         with PathKernels(E) as rec:
             reset_launches(E)
             rows = det.predict_crop(crop).rows
@@ -1735,12 +1448,9 @@ def phase_crop(torch, E, img) -> dict:
                              **kw).predict_crop(crop).rows
         match_rows(rows, cpu)
         match_rows(cpu, rows)
-        times = [wall_seconds(torch, lambda: det.predict_crop(crop))[1]
-                 for _ in range(3)]
         out[method] = {"launches": launches, "edt_shapes": shapes,
                        "kernels_bit_equal_to_plain": bit_equal,
-                       "rows": len(rows), "cpu_rows": len(cpu),
-                       "seconds": statistics.median(times)}
+                       "rows": len(rows), "cpu_rows": len(cpu)}
     cfg = DTEdgeConfig(bin_method="otsu")
     mask = DT.edge_mask(torch.from_numpy(crop).cuda()[None], cfg)[0].cpu()
     if not torch.equal(mask, DT.edge_mask(torch.from_numpy(crop)[None],
@@ -1894,21 +1604,19 @@ def phase_random(torch, E) -> dict:
     from oriented_object_detection_tpu_torch.models.yolo11_obb import (
         YOLO11OBB)
 
-    t0 = time.perf_counter()
     variables = random_variables(12, "x", 4, seed=0)
-    init_s = time.perf_counter() - t0
-    cal, cal_s = wall_seconds(torch, lambda: calibrate_density(
-        YOLO11OBB(nc=12, scale="x", in_channels=4), variables, 416, 4))
+    cal = calibrate_density(YOLO11OBB(nc=12, scale="x", in_channels=4),
+                            variables, 416, 4)
     offset = float(cal["params"]["l23"]["cv3_0_2"]["bias"][0]
                    - variables["params"]["l23"]["cv3_0_2"]["bias"][0])
     cfg = dataclasses.replace(PRESETS["detect_416_4ch"], scales=(
         ScaleConfig(416, 100, model_scale="x"),), **F32)
     det = TiledDetector(cfg, {416: cal})
     maps = [synthetic_map(s)[0] for s in RANDOM_SEEDS]
-    det.detect_images(maps)
     with PathKernels(E) as rec:
         reset_launches(E)
-        res, sec = wall_seconds(torch, lambda: det.detect_images(maps))
+        res = det.detect_images(maps)
+        torch.cuda.synchronize()
         launches = dict(E.LAUNCHES)
     bit_equal = rec.check(torch, "random")
     if launches != {k: 1 for k in KERNELS}:
@@ -1919,15 +1627,10 @@ def phase_random(torch, E) -> dict:
     for r in rows:
         if len(r):
             check_rows(r, 1024, 1024, cfg.conf_thr_predict)
-    times = [sec] + [wall_seconds(torch, lambda: det.detect_images(maps))[1]
-                     for _ in range(2)]
     emit({"phase": "random", "model_scale": "x", "channels": 4,
-          "maps": len(maps), "init_seconds": init_s,
-          "calibrate_seconds": cal_s, "bias_offset": offset,
+          "maps": len(maps), "bias_offset": offset,
           "rows": [len(r) for r in rows], "launches": launches,
-          "kernels_bit_equal_to_plain": bit_equal,
-          "seconds_per_map": statistics.median(times) / len(maps),
-          "seconds_per_map_all": [t / len(maps) for t in times]})
+          "kernels_bit_equal_to_plain": bit_equal})
     return launches
 
 
@@ -2027,66 +1730,11 @@ def moved(before: dict, after: dict) -> tuple:
     return n, len(before)
 
 
-def profile_steps(torch, TR, state, batches, cfg) -> dict:
-    """Two train steps under the profiler: wall seconds, the device's busy
-    time and idle share, and its time by kind of kernel, per step."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for b in batches:
-            TR.train_step(state, b, cfg)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / len(batches)
-    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not ops:
-        raise AssertionError("the profiler recorded no device work")
-    busy = busy_ms((e.time_range.start, e.time_range.end) for e in ops)
-    by_kind: dict = {}
-    by_name: dict = {}
-    for e in ops:
-        ms = (e.time_range.end - e.time_range.start) / 1e3 / len(batches)
-        kind = kernel_kind(e.name)
-        by_kind[kind] = by_kind.get(kind, 0.0) + ms
-        by_name[e.name] = by_name.get(e.name, 0.0) + ms
-    return {"steps": len(batches), "seconds_per_step_profiled":
-            wall_ms / 1e3, "device_busy_ms": busy / len(batches),
-            "idle_share": 1.0 - busy / len(batches) / wall_ms,
-            "device_ops_per_step": len(ops) / len(batches),
-            "device_ms_by_kind": by_kind,
-            "top_kernels": [{"name": k[:90], "device_ms": v} for k, v in
-                            sorted(by_name.items(),
-                                   key=lambda kv: -kv[1])[:10]]}
-
-
-def step_flops(torch, TR, state, batch, cfg) -> float:
-    """Float operations of one train step (forward and backward) as
-    ``torch.utils.flop_counter`` counts them: convolutions and matmuls."""
-    from torch.utils.flop_counter import FlopCounterMode
-
-    with FlopCounterMode(display=False) as counter:
-        TR.train_step(state, batch, cfg)
-    torch.cuda.synchronize()
-    return float(counter.get_total_flops())
-
-
-def wall_seconds(torch, fn) -> tuple:
-    """(result, wall seconds) of ``fn()``, the device synchronized."""
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = fn()
-    torch.cuda.synchronize()
-    return out, time.perf_counter() - t0
-
-
-def train_3ch(torch, tmp: str, smi: str) -> tuple:
+def train_3ch(torch, tmp: str) -> tuple:
     """YOLO11x-OBB, 3 channels, 416/100, batch 16 (``TRAIN``): warm start,
     one epoch of ``fit`` with mosaic and per-epoch validation, the moved
-    state, the checkpoint through ``build_detector``, two profiled steps.
-    Returns the phase's numbers and the train tiles (BGR)."""
+    state, the checkpoint through ``build_detector``. Returns the phase's
+    numbers and the train tiles (BGR)."""
     from oriented_object_detection_tpu_torch.config import TrainConfig
     from oriented_object_detection_tpu_torch.data.loader import TileDataset
     from oriented_object_detection_tpu_torch.eval.val import validate_tiles
@@ -2121,11 +1769,9 @@ def train_3ch(torch, tmp: str, smi: str) -> tuple:
 
     rng = np.random.RandomState(cfg.seed)
     run_dir = os.path.join(tmp, "run_x")
-    torch.cuda.reset_peak_memory_stats()
     with step_recorder(torch, TR) as steps:
         TR.fit(state, cfg, lambda e: train_ds.batches(bs, rng),
                val_fn=val_fn, ckpt_dir=run_dir)
-    peak = torch.cuda.max_memory_allocated()
     check_steps(steps, steps_per_epoch, "3ch x-scale")
     after = clone(state.model)
     params = {k for k, _ in state.model.named_parameters()}
@@ -2153,40 +1799,14 @@ def train_3ch(torch, tmp: str, smi: str) -> tuple:
     rows = det.detect_image(vimg)["merged_for_pr"]
     check_rows(rows, *vimg.shape[:2], det.cfg.conf_thr_predict)
     del det
-
-    # the layers apart: a loader batch, validation, a checkpoint write, the
-    # step's operations, then two profiled steps
-    it = train_ds.batches(bs, np.random.RandomState(1))
-    loader_s = [wall_seconds(torch, lambda: next(it))[1] for _ in range(3)]
-    extra = {"loader_seconds_per_batch": statistics.median(loader_s),
-             "validate_seconds": wall_seconds(torch, lambda: validate_tiles(
-                 state.eval_model(), val_ds, cfg))[1],
-             "checkpoint_write_seconds": wall_seconds(
-                 torch, lambda: TR.save_checkpoint(
-                     os.path.join(tmp, "ck.ckpt"), state))[1]}
-    batches = list(itertools.islice(train_ds.batches(
-        bs, np.random.RandomState(2)), 3))
-    flops = step_flops(torch, TR, state, batches[0], cfg)
-    prof = profile_steps(torch, TR, state, batches[1:], cfg)
-    warm = [s["seconds"] for s in steps[1:]]
     return {"model_scale": cfg.model_scale, "channels": 3, "tile_size": ts,
             "overlap": ov, "batch": bs, "train_tiles": len(train_ds),
             "val_tiles": len(val_ds), "steps": len(steps),
-            "seconds_per_step": statistics.median(warm),
-            "seconds_per_step_all": [s["seconds"] for s in steps],
             "losses": [s["metrics"] for s in steps],
-            "peak_memory_gib": peak / 2 ** 30, "nvidia_smi": smi,
             "moved": {"params": moved_params, "bn_statistics": moved_stats,
                       "ema": moved_ema},
             "fitness_warm_start": fit_warm_start, "fitness": fits[0],
-            "detect_rows": len(rows), **extra, "step_tflop": flops / 1e12,
-            "conv_tflops_per_s": flops / 1e9 / prof["device_ms_by_kind"].get(
-                "conv_matmul", float("nan")),
-            "profile": prof,
-            # the profiler's own cost slows each launch; the busy time over
-            # the unprofiled step is the idle share the step really has
-            "idle_share_unprofiled": 1.0 - prof["device_busy_ms"] / (
-                statistics.median(warm) * 1e3)}, bgr
+            "detect_rows": len(rows)}, bgr
 
 
 def train_4ch(torch, E, tmp: str, bgr: np.ndarray) -> dict:
@@ -2202,8 +1822,7 @@ def train_4ch(torch, E, tmp: str, bgr: np.ndarray) -> dict:
 
     ts, bs = TRAIN["tile_size"], TRAIN["batch"]
     tiles = torch.from_numpy(bgr).cuda()
-    for k in E.LAUNCHES:
-        E.LAUNCHES[k] = 0
+    reset_launches(E)
     four = torch.cat([DS.tiles_to_4ch(tiles[i:i + bs])
                       for i in range(0, len(tiles), bs)])
     torch.cuda.synchronize()
@@ -2238,9 +1857,7 @@ def train_4ch(torch, E, tmp: str, bgr: np.ndarray) -> dict:
     check_steps(steps, 2, "4ch n-scale")
     return {"tiles": len(four), "launches": launches, "dt_bit_equal": True,
             "model_scale": "n", "channels": 4, "tile_size": ts, "batch": bs,
-            "steps": len(steps),
-            "seconds_per_step_all": [s["seconds"] for s in steps],
-            "losses": [s["metrics"] for s in steps]}
+            "steps": len(steps), "losses": [s["metrics"] for s in steps]}
 
 
 def max_rel(a: np.ndarray, b: np.ndarray) -> float:
@@ -2319,16 +1936,15 @@ def train_card_vs_cpu(torch, tmp: str, card: str = "cuda",
             "max_rel": worst, "tolerance": STEP_RTOL}
 
 
-def phase_train(torch, E, smi: str) -> dict:
+def phase_train(torch, E) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
-        x3, bgr = train_3ch(torch, tmp, smi)
+        x3, bgr = train_3ch(torch, tmp)
         emit({"phase": "train", "part": "3ch", **x3})
         c4 = train_4ch(torch, E, tmp, bgr)
         emit({"phase": "train", "part": "4ch", **c4})
         step = train_card_vs_cpu(torch, tmp)
         emit({"phase": "train", "part": "card_vs_cpu", **step})
-    return {"launches": c4["launches"],
-            "seconds_per_step": x3["seconds_per_step"]}
+    return {"launches": c4["launches"]}
 
 
 # ---------------------------------------------------------------------------
@@ -2442,16 +2058,13 @@ def conv_output_dtypes(torch, models) -> tuple:
     return seen, hooks
 
 
-def bf16_dual(torch, f32: list, profile: int) -> dict:
+def bf16_dual(torch, f32: list) -> dict:
     """``detect_dual`` at the defaults (bf16, the int8 x-scale checkpoints)
-    over the batch phase's eight maps: every conv output bf16, seconds a
-    map one at a time (median of 5) and through ``detect_images``, peak
-    memory, device busy time; each scale's rows paired with the float32
-    results ``f32`` of the same maps, the fused rows reported; the metric
-    block of one map."""
+    over the batch phase's eight maps: every conv output bf16; each scale's
+    rows paired with the float32 results ``f32`` of the same maps, the
+    fused rows reported; the metric block of one map."""
     import dataclasses
 
-    from oriented_object_detection_tpu_torch.eval import metrics as M
     from oriented_object_detection_tpu_torch.infer.pipeline import (
         build_detector)
 
@@ -2467,10 +2080,7 @@ def bf16_dual(torch, f32: list, profile: int) -> dict:
         h.remove()
     if seen != {"torch.bfloat16"}:
         raise AssertionError(f"conv outputs {seen}, not bf16 alone")
-    times = seconds_per_map(torch, det, maps[0])
-    torch.cuda.reset_peak_memory_stats()
     per_map = [det.detect_image(m) for m in maps]
-    peak_one = torch.cuda.max_memory_allocated() / 2 ** 30
     rows = [r["merged_for_pr"] for r in per_map]
     for r in rows:
         check_rows(r, 1024, 1024, det.cfg.conf_thr_predict)
@@ -2480,53 +2090,22 @@ def bf16_dual(torch, f32: list, profile: int) -> dict:
               for ts in (128, 416)}
     paired["fused"] = pair_maps(rows, [r["merged_for_pr"] for r in f32],
                                 "bf16 dual fused", strict=False)
-    det.detect_images(maps)
-    torch.cuda.reset_peak_memory_stats()
-    batch = [wall_seconds(torch, lambda: det.detect_images(maps))[1]
-             for _ in range(3)]
-    peak_batch = torch.cuda.max_memory_allocated() / 2 ** 30
-    busy, ops = device_busy(torch, lambda: det.detect_images(maps))
-    if profile:
-        phase_profile(torch, det, maps[0], profile, "bf16_dual_profile")
-
     det.cfg = dataclasses.replace(det.cfg, calculate_metrics=True)
-    mres = det.detect_image(maps[0])
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "map.png")
-        open(path, "wb").close()
-        block = M.run_fusion_eval(
-            {path: mres["merged_for_pr"]}, tmp, tmp,
-            iou_thr=det.cfg.metrics_iou,
-            dets_map={path: mres["merged_for_map"]},
-            cache=M.GTCache(loader=lambda _: made[0][1]),
-            map_min_score=det.cfg.map_min_score)
-    numbers = [v for v in block.values() for v in np.ravel(v)]
-    if len(block) != 8 or not all(np.isfinite(v) and 0.0 <= v <= 1.0
-                                  for v in numbers):
-        raise AssertionError(f"bf16 metric block out of range: {block}")
-    wall = statistics.median(batch)
+    block = metric_block(det.cfg, det.detect_image(maps[0]), made[0][1],
+                         "bf16 dual")
     return {"maps": len(maps), "map": [1024, 1024], "model_scale": "x",
             "conv_output_dtypes": sorted(seen),
-            "seconds_per_map": statistics.median(times),
-            "seconds_per_map_all": times, "peak_memory_gib": peak_one,
-            "batch_seconds_per_map": wall / len(maps),
-            "batch_seconds_per_map_all": [t / len(maps) for t in batch],
-            "batch_peak_memory_gib": peak_batch,
-            "batch_device_busy_ms_per_map": busy / len(maps),
-            "batch_idle_share": 1.0 - busy / (wall * 1e3),
-            "batch_device_ops_per_map": ops / len(maps),
             "rows": [len(r) for r in rows],
             "float32_rows": [len(r["merged_for_pr"]) for r in f32],
             "paired_with_float32": paired,
             "metrics": {k: np.ravel(v).tolist() for k, v in block.items()}}
 
 
-def bf16_4ch(torch, E, f32_rows: list, profile: int) -> dict:
+def bf16_4ch(torch, E, f32_rows: list) -> dict:
     """``detect_416_4ch`` in bf16 over the batch phase's four maps, one at a
     time and in one batch: K1 and K2 launched (once a map, once for the
     batch), every output bit-equal to its plain version on the same input;
-    rows paired with the float32 rows; with ``profile``, the first map
-    profiled as the slice is (``bf16_4ch_profile``)."""
+    rows paired with the float32 rows."""
     from oriented_object_detection_tpu_torch.infer.pipeline import (
         build_detector)
 
@@ -2540,10 +2119,10 @@ def bf16_4ch(torch, E, f32_rows: list, profile: int) -> dict:
             ("per_image", lambda: [det.detect_image(m) for m in maps],
              len(maps)),
             ("batch", lambda: det.detect_images(maps), 1)):
-        fn()
         with PathKernels(E) as rec:
             reset_launches(E)
-            res, sec = wall_seconds(torch, fn)
+            res = fn()
+            torch.cuda.synchronize()
             launches = dict(E.LAUNCHES)
         if launches != {k: n for k in KERNELS}:
             raise AssertionError(f"bf16 4ch {mode}: launches {launches}, "
@@ -2551,13 +2130,10 @@ def bf16_4ch(torch, E, f32_rows: list, profile: int) -> dict:
         out[mode] = {"launches": launches,
                      "kernels_bit_equal_to_plain": rec.check(
                          torch, f"bf16 4ch {mode}"),
-                     "seconds_per_map": sec / len(maps),
                      "rows": [len(r["merged_for_pr"]) for r in res],
                      "paired_with_float32": pair_maps(
                          [r["merged_for_pr"] for r in res], f32_rows,
                          f"bf16 4ch {mode}")}
-    if profile:
-        phase_profile(torch, det, maps[0], profile, "bf16_4ch_profile")
     return out
 
 
@@ -2602,9 +2178,9 @@ def bf16_cli(torch, img: np.ndarray) -> dict:
         P.build_detector = spy
         try:
             with cv2_stand_in():
-                _, sec = wall_seconds(torch, lambda: cli.main([
-                    "detect", "--input", src, "--output", dst, "--scales",
-                    ",".join(f"{ts}:{ov}={ck}" for ts, ov, ck in DUAL)]))
+                cli.main(["detect", "--input", src, "--output", dst,
+                          "--scales", ",".join(f"{ts}:{ov}={ck}"
+                                               for ts, ov, ck in DUAL)])
         finally:
             P.build_detector = build
         files = sorted(os.listdir(dst))
@@ -2624,7 +2200,7 @@ def bf16_cli(torch, img: np.ndarray) -> dict:
         raise AssertionError(f"cli detect wrote {files}")
     return {"compute_dtype": det.cfg.compute_dtype, "weights": sorted(weights),
             "conv_output_dtypes": sorted(seen), "files": files,
-            "xlsx_rows": sheet.count("<row ") - 1, "seconds": sec}
+            "xlsx_rows": sheet.count("<row ") - 1}
 
 
 def step_gap(start: dict, a: list, b: list) -> dict:
@@ -2687,11 +2263,10 @@ def float32_state(torch, state) -> dict:
     return {k: len(v) for k, v in found.items()}
 
 
-def bf16_train(torch, tmp: str, smi: str) -> dict:
+def bf16_train(torch, tmp: str) -> dict:
     """``train_416`` at the default bf16: the first step against the float32
     step from the same warm start and batch (``BF16_STEP``), then ``fit``
-    for one epoch of 4 steps (finite losses, float32 optimizer state,
-    seconds a step, peak memory) and two profiled steps."""
+    for one epoch of 4 steps (finite losses, float32 optimizer state)."""
     import dataclasses
 
     from oriented_object_detection_tpu_torch.config import TrainConfig
@@ -2741,36 +2316,21 @@ def bf16_train(torch, tmp: str, smi: str) -> dict:
 
     state = warm(cfg)
     rng = np.random.RandomState(cfg.seed)
-    torch.cuda.reset_peak_memory_stats()
     with step_recorder(torch, TR) as steps:
         TR.fit(state, cfg, lambda e: train_ds.batches(bs, rng),
                ckpt_dir=os.path.join(tmp, "run_bf16"))
-    peak = torch.cuda.max_memory_allocated()
     check_steps(steps, steps_per_epoch, "bf16 x-scale")
-    counts = float32_state(torch, state)
-    batches = list(itertools.islice(train_ds.batches(
-        bs, np.random.RandomState(2)), 2))
-    prof = profile_steps(torch, TR, state, batches, cfg)
-    warm_s = [s["seconds"] for s in steps[1:]]
     return {"model_scale": cfg.model_scale, "channels": 3, "tile_size": ts,
             "batch": bs, "compute_dtype": cfg.compute_dtype,
-            "steps": len(steps),
-            "seconds_per_step": statistics.median(warm_s),
-            "seconds_per_step_all": [s["seconds"] for s in steps],
-            "losses": [s["metrics"] for s in steps],
-            "peak_memory_gib": peak / 2 ** 30, "nvidia_smi": smi,
-            "float32_state": counts,
+            "steps": len(steps), "losses": [s["metrics"] for s in steps],
+            "float32_state": float32_state(torch, state),
             "first_step": {"metrics": {dtype: [dict(zip(
                 TR.METRIC_KEYS, m.tolist())) for m, _ in runs]
                 for dtype, runs in one.items()}, "gap": gap,
-                "bound": BF16_STEP},
-            "profile": prof,
-            "idle_share_unprofiled": 1.0 - prof["device_busy_ms"] / (
-                statistics.median(warm_s) * 1e3)}
+                "bound": BF16_STEP}}
 
 
-def phase_bf16(torch, E, smi: str, f32: dict, img: np.ndarray,
-               profile: int) -> dict:
+def phase_bf16(torch, E, f32: dict, img: np.ndarray) -> dict:
     """bf16, the default compute dtype, on every path that runs it:
     ``detect_dual`` (``bf16_dual``), the 4ch slice (``bf16_4ch``),
     ``cli.py detect`` (``bf16_cli``), ``train_416`` (``bf16_train``) and an
@@ -2778,18 +2338,16 @@ def phase_bf16(torch, E, smi: str, f32: dict, img: np.ndarray,
     bf16 path that does not run is not replaced by float32."""
     if not torch.cuda.is_bf16_supported():
         raise AssertionError("the card does not support bf16")
-    t0 = time.perf_counter()
-    dual = bf16_dual(torch, f32["dual"], profile)
+    dual = bf16_dual(torch, f32["dual"])
     emit({"phase": "bf16", "part": "dual", **dual})
-    four = bf16_4ch(torch, E, f32["4ch"], profile)
+    four = bf16_4ch(torch, E, f32["4ch"])
     emit({"phase": "bf16", "part": "4ch", "model_scale": "n", **four})
     emit({"phase": "bf16", "part": "cli", **bf16_cli(torch, img)})
     with tempfile.TemporaryDirectory() as tmp:
-        train = bf16_train(torch, tmp, smi)
+        train = bf16_train(torch, tmp)
         emit({"phase": "bf16", "part": "train", **train})
         step = train_card_vs_cpu(torch, tmp, dtype="bfloat16")
-    emit({"phase": "bf16", "part": "card_vs_cpu", **step,
-          "phase_seconds": time.perf_counter() - t0})
+    emit({"phase": "bf16", "part": "card_vs_cpu", **step})
     return {mode: four[mode]["launches"] for mode in four}
 
 
@@ -3552,9 +3110,6 @@ def main(argv=None) -> int:
     import torch
 
     p = argparse.ArgumentParser()
-    p.add_argument("--profile", type=int, default=0, metavar="MAPS",
-                   help="also profile the slice, the dual path and the "
-                        "bf16 dual path over MAPS warm maps each")
     p.add_argument("--dist-worker", metavar="SPEC",
                    help="(used by the dist phase) run one process of a "
                         "data-parallel run from its JSON spec")
@@ -3609,24 +3164,15 @@ def main(argv=None) -> int:
         "map": torch.from_numpy(edge_masks(rng, (1, 2048, 2048))).cuda(),
         "slice": smask})
     phase_ragged(E, torch)
-    epi = phase_epilogue(torch, img)
-    phase_yolo12(torch, img)
-    phase_concat_in_place(torch, img)
-    det, sl = phase_slice(torch, E, img)
-    if args.profile:
-        phase_profile(torch, det, img, args.profile, "profile")
-    del det
-    dual = phase_dual(torch, E, img, gt)
-    if args.profile:
-        phase_profile(torch, dual, img, args.profile, "dual_profile")
-    del dual
+    fwd = phase_forward(torch, img)
+    slice_launches = phase_slice(torch, E, img)
+    phase_dual(torch, E, img, gt)
     multi = phase_batch(torch, E)
     crop = phase_crop(torch, E, img)
     phase_convert(torch, img)
     rand = phase_random(torch, E)
-    bf16 = phase_bf16(torch, E, smi, multi["float32_results"], img,
-                      args.profile)
-    train = phase_train(torch, E, smi)
+    bf16 = phase_bf16(torch, E, multi["float32_results"], img)
+    train = phase_train(torch, E)
     dist = phase_dist(torch, E)
     axis = phase_model_axis(torch, E)
 
@@ -3642,8 +3188,8 @@ def main(argv=None) -> int:
     emit({"kernels": [
         {"name": name, "route": "cuda",
          "source": "oriented_object_detection_tpu_torch/csrc/edt.cu",
-         "replaces": REPLACES[name], "launches": sl["launches"][name],
-         "launches_by_path": {"slice": sl["launches"][name], "dual": 0,
+         "replaces": REPLACES[name], "launches": slice_launches[name],
+         "launches_by_path": {"slice": slice_launches[name], "dual": 0,
                               "batch": multi["batch"][name],
                               "stream": multi["stream"][name],
                               "crop": crop[name], "random": rand[name],
@@ -3668,9 +3214,9 @@ def main(argv=None) -> int:
         "ptxas": {k: {**v, "blocks_per_sm": blocks_per_sm(v, 256, 0)}
                   for k, v in ptxas.items() if k.startswith(
                       EPILOGUE_KERNELS)},
-        **{f"tile_{ts}": {"launches_per_forward": epi[f"bf16_{ts}"][
-            "launches"], **epi[f"bf16_{ts}"]["epilogue"]}
-           for ts in SHEET_TILES}}})
+        **{f"tile_{ts}": {"launches_per_forward": row["launches"],
+                          **row["epilogue"]}
+           for ts in SHEET_TILES for row in [fwd[f"yolo11x_bf16_{ts}"]]}}})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

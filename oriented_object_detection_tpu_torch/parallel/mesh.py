@@ -276,14 +276,3 @@ def batch_rows(batch_size: int, rank: int, world: int) -> tuple:
     rows = batch_size // world
     return rank * rows, (rank + 1) * rows
 
-
-def pad_to_multiple(n: int, m: int) -> int:
-    return ((n + m - 1) // m) * m
-
-
-def best_data_axis_size(batch_size: int, n_devices: int) -> int:
-    """Largest device count <= n_devices that divides the batch size."""
-    for d in range(min(n_devices, batch_size), 0, -1):
-        if batch_size % d == 0:
-            return d
-    return 1

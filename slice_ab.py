@@ -4,10 +4,12 @@ commit), on one CUDA card. Processes alternate other, this, this, other,
 and so on for each round; each process times warm ``detect_image`` calls,
 each ended by a device synchronize, of the 4-channel slice
 (``train416_4ch.ckpt`` at 416/100) and of ``detect_dual`` (YOLO11x-OBB,
-int8 checkpoints) on ``chip_smoke.synthetic_map(0)``, with the functions
-of its own checkout's ``chip_smoke.py``, and warm one-process train steps
-of YOLO11x-OBB at 416, batch 16, from ``train416_x.ckpt`` on the sixteen
-416 tiles of ``chip_smoke.map_tiles(11, ...)`` (``--steps``, 0 for none).
+int8 checkpoints) on ``chip_smoke.synthetic_map(0)`` (the maps,
+checkpoints and tiles come from that checkout's ``chip_smoke.py``, the
+timing from this file, so both sides are timed alike), and warm
+one-process train steps of YOLO11x-OBB at 416, batch 16, from
+``train416_x.ckpt`` on the sixteen 416 tiles of
+``chip_smoke.map_tiles(11, ...)`` (``--steps``, 0 for none).
 Prints the card's name and power limit, one JSON line a process, then a
 summary line of the medians.
 
@@ -25,6 +27,20 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def seconds_per_map(torch, det, img, maps: int) -> list:
+    """Wall seconds of ``maps`` warm ``detect_image`` calls, each ended by a
+    device synchronize, after one call to warm up."""
+    det.detect_image(img)
+    times = []
+    for _ in range(maps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        det.detect_image(img)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return times
 
 
 def train_batch(C, torch, max_labels: int = 64) -> dict:
@@ -85,7 +101,7 @@ def child(checkout: str, maps: int, steps: int) -> None:
     for label, det, n in (
             ("slice", build_detector([(416, 100, C.CKPT)], channels=4), maps),
             ("dual", build_detector(C.DUAL), max(1, maps // 3))):
-        times = C.seconds_per_map(torch, det, img, maps=n)
+        times = seconds_per_map(torch, det, img, maps=n)
         out[label] = statistics.median(times)
         out[f"{label}_all"] = times
         del det
