@@ -62,7 +62,11 @@ bounds hold as before:
              epilogues' device time by mode beside the plain version's,
              the library's and the bytes bound; then one ``detect_image``
              a detector, launching the kernel once a fused ConvBN a
-             forward.
+             forward; last ``detect_stream`` of three 4096x4096 sheets
+             through the dual detector, chunk 1: ``STREAM`` reads 3 groups
+             and 2 queued ahead, and ``GRID`` the fusion's rows and pairs
+             a sheet, with the share of the all-pairs scan's pairs that
+             its grid tests.
 6. slice   - runs the 4-channel 416/100 detector on the committed
              ``train416_4ch.ckpt`` (YOLO11n-OBB) over a seeded synthetic
              1024x1024 map (16 tiles): both kernels must launch, the
@@ -1151,9 +1155,10 @@ def phase_forward(torch, img) -> dict:
     scale (committed checkpoints) in bf16 and float32 (the float32
     detector: the epilogues and launches alone) and at a sheet's 25
     YOLO12x tiles of 1024 (seeded weights, ``random_variables(...,
-    arch="yolo12")``) in bf16; last one ``detect_image`` a detector,
+    arch="yolo12")``) in bf16; then one ``detect_image`` a detector,
     launching the kernel once a fused ConvBN a forward (and YOLO12x's 16
-    area attention blocks once)."""
+    area attention blocks once); last ``sheet_stream`` on the YOLO11x bf16
+    detector."""
     from oriented_object_detection_tpu_torch.config import (DetectConfig,
                                                           ScaleConfig)
     from oriented_object_detection_tpu_torch.infer.pipeline import (
@@ -1204,8 +1209,43 @@ def phase_forward(torch, img) -> dict:
         out[f"{arch}_{dtype}_detect_image"] = row
         emit({"phase": "forward", "model": arch, "dtype": dtype,
               "detect_image": row})
+        if (arch, dtype) == ("yolo11x", "bf16"):
+            out["sheet_stream"] = row = sheet_stream(torch, det, img)
+            emit({"phase": "forward", "model": arch, "dtype": dtype,
+                  "sheet_stream": row})
         del det
     return out
+
+
+def sheet_stream(torch, det, img, n: int = 3) -> dict:
+    """``detect_stream`` of ``n`` 4096x4096 sheets (``img`` tiled 4x4),
+    chunk 1: ``STREAM`` must read ``n`` groups, ``n - 1`` of them queued
+    ahead, and each sheet's rows pair both ways with
+    ``detect_images([sheet])``'s, per scale and fused (the look-ahead's
+    side-stream uploads and pinned rows with two groups in flight);
+    ``GRID`` gives the fusion's calls, rows and pairs a sheet, and
+    ``grid_pair_share`` the share of the all-pairs scan's pairs that the
+    grid tests."""
+    from oriented_object_detection_tpu_torch.infer import fusion as F
+    from oriented_object_detection_tpu_torch.infer import pipeline as P
+
+    sheet = np.tile(img, (4, 4, 1))
+    stream0, grid0 = dict(P.STREAM), dict(F.GRID)
+    res = list(det.detect_stream([sheet] * n, chunk=1))
+    torch.cuda.synchronize()
+    stream = {k: P.STREAM[k] - stream0[k] for k in P.STREAM}
+    grid = {k: (F.GRID[k] - grid0[k]) / n for k in F.GRID}
+    row = {"sheets": n, "sheet": list(sheet.shape[:2]),
+           "rows": [len(r["merged_for_pr"]) for r in res],
+           "stream": stream, "grid_per_sheet": grid,
+           "grid_pair_share": grid["pairs_tested"] / max(1, grid["pairs_all"])}
+    if len(res) != n or stream != {"groups": n, "ahead": n - 1} or \
+            grid["pairs_tested"] > grid["pairs_all"]:
+        raise AssertionError(f"sheet stream: {row}")
+    pair_modes({"stream": res, "per_image": det.detect_images([sheet]) * n},
+               tuple(det.models), skip_near=(F.CONS_LOW, F.CONS_HIGH),
+               modes=("stream",))
+    return row
 
 
 # ---------------------------------------------------------------------------

@@ -9,9 +9,14 @@
   IoU, partner IoU >= CONS_IOU_PARTNER); keep the stronger of the pair, or a
   solo detection only when its confidence >= CONS_HIGH.
 
-Both run in the native library (``native/geom.cpp``), which raises when it
-cannot be built. Detections are [N, 11] float64 rows (x1..y4, cls_id, conf,
-angle).
+Both run in the native library (``csrc/fusion_grid.cpp`` over
+``native/geom.cpp``'s geometry), which raises when it cannot be built.
+Each indexes its rows by a uniform grid, so a row tests only the rows that
+share a grid cell with its axis-aligned bounding box; the kept rows are
+those of the all-pairs scan, in the same order. ``GRID`` counts the calls,
+their rows, the pairs tested (``pairs_tested``) and the pairs the
+all-pairs scan would test (``pairs_all``). Detections are [N, 11] float64
+rows (x1..y4, cls_id, conf, angle).
 """
 
 from __future__ import annotations
@@ -26,6 +31,15 @@ CONS_HIGH = 0.70
 
 DET_WIDTH = 11  # x1..y4 (8), cls, conf, angle
 
+GRID = {"calls": 0, "rows": 0, "pairs_tested": 0, "pairs_all": 0}
+
+
+def _count(rows: int, tested: int, scanned: int) -> None:
+    GRID["calls"] += 1
+    GRID["rows"] += rows
+    GRID["pairs_tested"] += tested
+    GRID["pairs_all"] += scanned
+
 
 def exact_iou_matrix_host(c8a: np.ndarray, c8b: np.ndarray) -> np.ndarray:
     """Exact pairwise quad IoU [na, nb] in double precision."""
@@ -39,7 +53,9 @@ def merge_detections(dets: np.ndarray, iou_threshold: float = 0.4
     dets = np.asarray(dets, np.float64).reshape(-1, DET_WIDTH)
     if not len(dets):
         return dets
-    return dets[native.greedy_nms(dets, iou_threshold)]
+    keep, tested, scanned = native.greedy_nms_grid(dets, iou_threshold)
+    _count(len(dets), tested, scanned)
+    return dets[keep]
 
 
 def cross_scale_consensus_filter(dets_by_scale: dict) -> np.ndarray:
@@ -55,6 +71,7 @@ def cross_scale_consensus_filter(dets_by_scale: dict) -> np.ndarray:
     scale_of = np.concatenate([np.full(len(f), i, np.int32)
                                for i, f in enumerate(filt)]) \
         if filt else np.zeros(0, np.int32)
-    keep = native.consensus_filter(rows, scale_of, CONS_IOU_PARTNER,
-                                   CONS_LOW, CONS_HIGH)
+    keep, tested, scanned = native.consensus_filter_grid(
+        rows, scale_of, CONS_IOU_PARTNER, CONS_LOW, CONS_HIGH)
+    _count(len(rows), tested, scanned)
     return rows[keep]

@@ -4,20 +4,24 @@ Per scale, on the device: gather the tile batch -> (DT-Edge if 4ch) -> /255
 -> YOLO11-OBB or YOLO12-OBB forward -> decode -> the engine's ProbIoU NMS
 -> stitch to map coordinates -> border filter -> Strike angles. On the
 host: the per-tile exact-IoU merge, the cross-scale consensus fusion and
-the global merges (``infer/fusion.py``, ``native/geom.cpp``), then the
-``{stem}_detected.jpg`` and ``{stem}.xlsx`` outputs.
+the global merges (``infer/fusion.py``, ``csrc/fusion_grid.cpp`` over
+``native/geom.cpp``), then the ``{stem}_detected.jpg`` and ``{stem}.xlsx``
+outputs.
 
 ``detect_images`` runs one device batch per scale over the tiles of several
-maps; ``detect_stream`` pipelines groups of maps, uploading the next group
-and running its device work while the host merges the last. The device part
-queues without a host synchronization: each scale's fixed-shape rows come
-back into pinned memory behind a CUDA event that the host waits on before
-its merges, and the stream uploads each later group from pinned memory on a
-side stream. The tiles go through the network in chunks of a fixed number
-of pixels, so memory stays bounded however many maps come. Under a
-``torch.profiler`` the path marks its layers with ``utils/profiling``
-spans: the stages, ``tiles_<tile>``, ``forward_<tile>``, ``decode_raw``
-and ``postprocess_batch``.
+maps; ``detect_stream`` pipelines groups of maps with one group of
+look-ahead: it uploads and queues group k+1 before it waits for group k, so
+the card has the next group queued when it finishes one, and the host
+merges group k while the card runs k+1. The device part queues without a
+host synchronization: each scale's fixed-shape rows come back into pinned
+memory behind a CUDA event that the host waits on before its merges, and
+the stream uploads each later group from pinned memory on a side stream.
+``STREAM`` counts the stream's groups and those queued ahead, while the
+group before them was still unfetched. The tiles go through the network
+in chunks of a fixed number of pixels, so memory stays bounded however
+many maps come. Under a ``torch.profiler`` the path marks its layers with
+``utils/profiling`` spans: the stages, ``tiles_<tile>``,
+``forward_<tile>``, ``decode_raw`` and ``postprocess_batch``.
 ``predict_crop`` is the reference's single-crop predictor (letterbox, one
 forward, no tiling).
 
@@ -59,6 +63,8 @@ DET_WIDTH = F.DET_WIDTH
 # amount of memory: 192 tiles of 416 or 2048 of 128 (the peaks it gives are
 # in PERF.md section 5)
 TILE_PIXELS_PER_FORWARD = 1 << 25
+
+STREAM = {"groups": 0, "ahead": 0}
 
 
 class Detections:
@@ -341,10 +347,12 @@ class TiledDetector:
     def detect_stream(self, images_bgr, chunk: int = 1):
         """Pipelined detection, a generator of per-map result dicts (as
         ``detect_image`` gives) over groups of ``chunk`` maps, in input
-        order. Per group k: dispatch k, upload k+1 (beside k's device
-        work), fetch k, dispatch k+1, then k's host merges and fusion while
-        the device runs k+1. The rows are those of ``detect_images`` over
-        each group."""
+        order. After dispatching group 0, per group k: upload k+1 (on the
+        side stream) and dispatch it behind k's device work, fetch k, then
+        k's host merges and fusion while the device runs k+1. So the
+        device finds k+1 queued when it finishes k. No device tensor of a
+        group outlives its dispatch. The rows are those of
+        ``detect_images`` over each group."""
         images_bgr = list(images_bgr)
         if not images_bgr:
             return
@@ -352,10 +360,13 @@ class TiledDetector:
         groups = [images_bgr[i:i + chunk]
                   for i in range(0, len(images_bgr), chunk)]
         cur = self._dispatch(self._upload(groups[0]))
+        STREAM["groups"] += 1
         for k, nxt in enumerate(groups[1:]):
-            uploaded = self._upload(nxt, side=True)
+            ahead = self._dispatch(self._upload(nxt, side=True))
+            STREAM["groups"] += 1
+            STREAM["ahead"] += 1
             fetched = self._fetch(cur)
-            cur = self._dispatch(uploaded)
+            cur = ahead
             yield from self._split_and_finalize(fetched, len(groups[k]))
         yield from self._split_and_finalize(self._fetch(cur),
                                             len(groups[-1]))

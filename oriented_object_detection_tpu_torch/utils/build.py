@@ -30,12 +30,15 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 
 def build_shared_library(name: str, sources: list[str], command: list[str],
-                         timeout: float = 300.0) -> ctypes.CDLL:
+                         timeout: float = 300.0,
+                         includes: tuple[str, ...] = ()) -> ctypes.CDLL:
     """Compile ``sources`` with ``command + ['-o', out] + sources`` into
     ``_build/lib{name}-{hash}.so`` unless it is there already, then load
-    it. Raises ``RuntimeError`` with the compiler's output on failure."""
+    it. ``includes`` are files the sources include: hashed with them, not
+    compiled. Raises ``RuntimeError`` with the compiler's output on
+    failure."""
     h = hashlib.sha256(" ".join(command).encode())
-    for src in sources:
+    for src in [*sources, *includes]:
         with open(src, "rb") as f:
             h.update(f.read())
     os.makedirs(BUILD_DIR, exist_ok=True)

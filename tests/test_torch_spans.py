@@ -87,6 +87,16 @@ def test_one_dispatch_wait_and_fusion_a_group(events):
         assert d_end <= w_start and w_end <= f_start
 
 
+def test_the_next_group_is_dispatched_before_the_wait(events):
+    """One group of look-ahead: group k+1's dispatch ends before the host
+    starts waiting for group k."""
+    dispatch = _spans(events, "stage/detect/dispatch")
+    wait = _spans(events, "stage/detect/wait")
+    assert len(dispatch) == len(wait) == GROUPS
+    for (_, d_end), (w_start, _) in zip(dispatch[1:], wait):
+        assert d_end <= w_start
+
+
 def test_the_input_cast_lies_outside_the_forward(events):
     """The tiles' cast to the compute dtype runs before the forward's span
     opens, so the span holds the network's kernels alone."""
