@@ -72,16 +72,20 @@ def release(sess: Session) -> None:
 
 
 def reference(sess: Session, precision: str = "float32") -> list:
-    """The reference's results over the sampled answers' maps."""
+    """The reference's results over the sampled answers' maps, through the
+    architecture's tile input and decode where its module defines them
+    (``reference/detect.py``; YOLO's otherwise)."""
     cfg = reference_config(sess.cell.config)
-    models = sess.cell.arch.reference_models(cfg, sess.cell.root,
-                                             sess.device, precision)
+    arch = sess.cell.arch
+    models = arch.reference_models(cfg, sess.cell.root, sess.device,
+                                   precision)
+    hooks = {k: getattr(arch, k) for k in RD.ARCH_HOOKS if hasattr(arch, k)}
     done = {}
     for i in sess.sample:
         p = sess.results[i][0]
         if p not in done:
             done[p] = RD.detect_map(models, sess.pool[p], cfg, sess.device,
-                                    FLOOR)
+                                    FLOOR, **hooks)
     del models
     return [done[sess.results[i][0]] for i in sess.sample]
 

@@ -71,7 +71,15 @@ class Cell:
     def arch(self):
         """The architecture module: ``program_detector(cell, device)``,
         ``reference_models(cfg, root, device, precision)`` and
-        ``forward_flops(cfg, tile)``."""
+        ``forward_flops(cfg, tile)``; optionally the reference's own
+        ``reference_input(tiles)`` (uint8 BGR ``[n, ts, ts, 3]`` on the
+        device to the model's float32 NCHW input) and
+        ``reference_decode(out, tile)`` (the model's raw outputs to
+        ``xywhr`` ``[B, A, 5]`` in tile pixels, radians in any range, and
+        ``scores`` ``[B, A, nc]`` in [0, 1]), YOLO's where it defines
+        none. Everything after the decode is shared by every
+        architecture (``reference/detect.py``): an architecture brings its
+        network, not its own NMS policy."""
         return self.module(
             "archs", self.config["model"].lower().replace("-", "_"))
 

@@ -6,8 +6,8 @@ time, and the breakdown of the result line.
 
 A kernel belongs to the innermost span whose host interval holds the
 start of the operator that launched it (the profiler links them by
-correlation id). The kinds of kernels are the frozen table of
-``chip_smoke.kernel_kind``.
+correlation id). The kinds of kernels are the frozen table
+``KERNEL_KINDS`` below, read by ``kernel_kind``.
 """
 
 from __future__ import annotations

@@ -4,7 +4,14 @@ engine's NMS per tile, the shift to map pixels, the border filter, the
 Strike angle, the per-tile exact-IoU merge and the cross-scale consensus
 with its global merge. Float32 on the device for the tiles, float64 on
 the host for the merges (``merge.py``), rows of confidence >= ``floor``
-(the merges are exact on them)."""
+(the merges are exact on them).
+
+An architecture brings its network: the tile's input (``reference_input``)
+and the decode of its raw outputs (``reference_decode``), YOLO's by
+default. Everything after the decode is the system's and the same for
+every architecture: ``model.postprocess`` (top-k, the one-shot ProbIoU
+NMS, ``max_det_per_tile``), the shift, the border filter, the Strike
+angle and the merges."""
 
 from __future__ import annotations
 
@@ -16,6 +23,15 @@ from . import model as M
 
 PAD = 114
 STRIKE = 1
+# what an architecture module may give the reference (archs/<model>.py)
+ARCH_HOOKS = ("reference_input", "reference_decode")
+
+
+def yolo_input(tiles: torch.Tensor) -> torch.Tensor:
+    """uint8 BGR tiles [n, ts, ts, 3] -> the float32 RGB NCHW input in
+    [0, 1] of a YOLO model. (Here and not in ``model.py``: the seeded
+    YOLO12 checkpoint's cache name holds a digest of that file.)"""
+    return tiles.flip(-1).permute(0, 3, 1, 2).to(torch.float32) / 255.0
 
 
 def tile_grid(h: int, w: int, ts: int, ov: int) -> np.ndarray:
@@ -41,9 +57,15 @@ def load_models(cfg: dict, root: str, device, precision: str = "float32"
 
 @torch.no_grad()
 def scale_rows(model, image: np.ndarray, sc: dict, cfg: dict, device,
-               floor: float, tiles_per_forward: int = 256) -> np.ndarray:
+               floor: float, tiles_per_forward: int = 256, *,
+               reference_input=yolo_input, reference_decode=M.decode
+               ) -> np.ndarray:
     """Valid rows [N, 12] (11 columns and the tile index) of one map at one
-    scale, confidence >= ``floor``."""
+    scale, confidence >= ``floor``. ``reference_input(tiles)`` takes uint8
+    BGR tiles [n, ts, ts, 3] on the device to the model's float32 NCHW
+    input; ``reference_decode(out, ts)`` takes the model's raw outputs to
+    (xywhr [n, A, 5] in tile pixels, radians; scores [n, A, nc] in
+    [0, 1]). The NMS and all after it are shared."""
     ts, ov = sc["tile_size"], sc["overlap"]
     H, W = image.shape[:2]
     grid = tile_grid(H, W, ts, ov)
@@ -55,8 +77,8 @@ def scale_rows(model, image: np.ndarray, sc: dict, cfg: dict, device,
     for a in range(0, len(grid), tiles_per_forward):
         g = grid[a:a + tiles_per_forward]
         tiles = torch.stack([padded[y:y + ts, x:x + ts] for x, y, _, _ in g])
-        x = tiles.flip(-1).permute(0, 3, 1, 2).to(torch.float32) / 255.0
-        rb, scores = M.decode(model(x), ts)
+        x = reference_input(tiles)
+        rb, scores = reference_decode(model(x), ts)
         d = M.postprocess(rb, scores, cfg["conf_thr"], cfg["engine_nms_iou"],
                           cfg["max_det_per_tile"], cfg["pre_topk"])
         gt = torch.from_numpy(g).to(device).to(torch.float32)
@@ -82,13 +104,16 @@ def scale_rows(model, image: np.ndarray, sc: dict, cfg: dict, device,
 
 
 def detect_map(models: dict, image: np.ndarray, cfg: dict, device,
-               floor: float) -> dict:
+               floor: float, *, reference_input=yolo_input,
+               reference_decode=M.decode) -> dict:
     """{'by_scale': {tile_size: rows}, 'merged_for_pr': rows} of one map,
-    every row of confidence >= ``floor``."""
+    every row of confidence >= ``floor``; the architecture's input and
+    decode as ``scale_rows`` takes them."""
     by_scale = {}
     for sc in cfg["scales"]:
         rows = scale_rows(models[sc["tile_size"]], image, sc, cfg, device,
-                          floor)
+                          floor, reference_input=reference_input,
+                          reference_decode=reference_decode)
         per_tile = [merge.greedy_merge(rows[rows[:, 11] == t][:, :11],
                                        cfg["merge_iou"])
                     for t in np.unique(rows[:, 11])]

@@ -3,7 +3,8 @@ architecture module (``archs/<model>.py``): YOLO11-OBB's module gives what
 the reference models and the FLOP count gave before there were modules,
 bit for bit, and an architecture added as files, with its configuration,
 cell and tiny sizes, runs a whole cell with no file of the benchmark
-edited."""
+edited: on YOLO's reference input and decode, and on its own, which the
+check is seen to run."""
 
 from __future__ import annotations
 
@@ -147,14 +148,10 @@ def _write(path, obj) -> None:
         f.write(obj if isinstance(obj, str) else json.dumps(obj))
 
 
-def test_architecture_added_as_files_runs_a_cell(tmp_path, monkeypatch):
-    """An architecture module, a configuration whose ``model`` names it, a
-    cell on ``detect_stream`` and their tiny sizes, all new files in a
-    directory of the test's own: the cell runs on the CPU, ``correct``,
-    through the stand-in's three functions, and no file under
-    ``obbbench/`` was added or changed."""
-    before = _tree(spec.BENCH_DIR)
-    tmp = str(tmp_path)
+def _standin_cell(tmp: str, source: str):
+    """The cell ``standin_sheets`` on the configuration
+    ``standin_obb_dual``, whose ``model`` names the architecture
+    ``source``, all new files in the directory ``tmp``, at tiny sizes."""
     bench = tiny.merged_bench()
     bench["configs"].append({
         "name": "standin_obb_dual", "source": "https://example.org/standin",
@@ -168,7 +165,7 @@ def test_architecture_added_as_files_runs_a_cell(tmp_path, monkeypatch):
         if m["name"] == "detect_mpix_per_s":
             m["workloads"].append("standin_sheets")
     _write(os.path.join(tmp, "BENCHMARK.json"), bench)
-    _write(os.path.join(tmp, "archs", "standin_obb.py"), STANDIN)
+    _write(os.path.join(tmp, "archs", "standin_obb.py"), source)
     cfg = spec.read_json(os.path.join(spec.BENCH_DIR, "configs",
                                       "yolo11x_obb_dual_bf16.json"))
     cfg.update(name="standin_obb_dual", model="Standin-OBB")
@@ -185,10 +182,25 @@ def test_architecture_added_as_files_runs_a_cell(tmp_path, monkeypatch):
            {"params": {"height": 640, "width": 640, "pool": 2,
                        "warm_maps": 2}})
     tiny.make(tmp)
-
     cell = spec.load_cell("standin_sheets", spec.ROOT, tmp)
+    assert cell.arch.__file__ == os.path.join(tmp, "archs", "standin_obb.py")
+    return cell
+
+
+def _run(cell):
+    return runner.run_cell(cell, 2 ** 31 + 41, 1.0, False, CPU,
+                           time.perf_counter(), lambda *a: None)
+
+
+def test_architecture_added_as_files_runs_a_cell(tmp_path, monkeypatch):
+    """An architecture module, a configuration whose ``model`` names it, a
+    cell on ``detect_stream`` and their tiny sizes, all new files in a
+    directory of the test's own: the cell runs on the CPU, ``correct``,
+    through the stand-in's three functions, and no file under
+    ``obbbench/`` was added or changed."""
+    before = _tree(spec.BENCH_DIR)
+    cell = _standin_cell(str(tmp_path), STANDIN)
     arch = cell.arch
-    assert arch.__file__ == os.path.join(tmp, "archs", "standin_obb.py")
     # every call into YOLO11-OBB's module goes through the stand-in
     base_calls = []
     for fn in ("program_detector", "reference_models", "forward_flops"):
@@ -196,14 +208,126 @@ def test_architecture_added_as_files_runs_a_cell(tmp_path, monkeypatch):
         monkeypatch.setattr(arch.BASE, fn, lambda *a, _f=fn, _i=inner, **k:
                             base_calls.append(_f) or _i(*a, **k))
     arch.CALLS.clear()
-    res = runner.run_cell(cell, 2 ** 31 + 41, 1.0, False, CPU,
-                          time.perf_counter(), lambda *a: None)
+    res = _run(cell)
     assert res["correct"] is True, res["checks"]
     assert res["attempted"] > 0
     assert sorted(set(arch.CALLS)) == ["forward_flops", "program_detector",
                                        "reference_models"]
     assert base_calls == arch.CALLS
     assert _tree(spec.BENCH_DIR) == before
+
+
+STANDIN_OWN = '''"""A stand-in architecture whose reference is not YOLO's at its edges:
+RTMDet's input (BGR, less the mean, over the std), undone inside a wrapper
+around YOLO11-OBB's reference model, and a decode of its own."""
+import os
+
+import torch
+
+from obbbench.harness import spec
+from obbbench.reference import model as M
+
+BASE = spec.load_module(os.path.join(spec.BENCH_DIR, "archs",
+                                     "yolo11_obb.py"))
+MEAN = (103.53, 116.28, 123.675)
+STD = (57.375, 57.12, 58.395)
+CALLS = []
+program_detector = BASE.program_detector
+forward_flops = BASE.forward_flops
+
+
+def _stats(device):
+    return (torch.tensor(MEAN, device=device).view(1, 3, 1, 1),
+            torch.tensor(STD, device=device).view(1, 3, 1, 1))
+
+
+class Normalised(torch.nn.Module):
+    """YOLO11-OBB's reference model on RTMDet's input."""
+
+    def __init__(self, inner):
+        super().__init__()
+        self.inner = inner
+
+    def forward(self, x):
+        mean, std = _stats(x.device)
+        return self.inner((x * std + mean).flip(1) / 255.0)
+
+
+def reference_models(cfg, root, device, precision="float32"):
+    return {ts: Normalised(m).eval() for ts, m in
+            BASE.reference_models(cfg, root, device, precision).items()}
+
+
+def reference_input(tiles):
+    CALLS.append("reference_input")
+    mean, std = _stats(tiles.device)
+    return (tiles.permute(0, 3, 1, 2).to(torch.float32) - mean) / std
+
+
+def reference_decode(out, tile):
+    CALLS.append("reference_decode")
+    return M.decode(out, tile)
+'''
+
+
+def anchors_at_corners(out, tile):
+    """YOLO's decode with the anchor points at offset 0 of a cell, not at
+    its centre: every box half a stride up and to the left."""
+    box, cls = M.flatten_levels(out["box"]), M.flatten_levels(out["cls"])
+    ang = M.flatten_levels(out["ang"])[..., 0]
+    pts, strides = M.make_anchors(tile, box.device, offset=0.0)
+    rb = M.dist2rbox(M.dfl_expectation(box), M.decode_angle(ang), pts[None])
+    return (torch.cat([rb[..., :4] * strides[None, :, None], rb[..., 4:]],
+                      -1), torch.sigmoid(cls))
+
+
+def test_architecture_with_its_own_input_and_decode_runs_a_cell(tmp_path):
+    """A stand-in whose module defines ``reference_input`` and
+    ``reference_decode``, added as files: the cell runs ``correct`` on the
+    CPU through both, and no file under ``obbbench/`` was added or
+    changed."""
+    before = _tree(spec.BENCH_DIR)
+    cell = _standin_cell(str(tmp_path), STANDIN_OWN)
+    arch = cell.arch
+    arch.CALLS.clear()
+    res = _run(cell)
+    assert res["correct"] is True, res["checks"]
+    assert res["attempted"] > 0
+    assert sorted(set(arch.CALLS)) == ["reference_decode", "reference_input"]
+    assert _tree(spec.BENCH_DIR) == before
+
+
+def test_a_wrong_decode_of_the_architecture_is_not_correct(tmp_path,
+                                                           monkeypatch):
+    """The same stand-in with its anchors planted at offset 0: the check
+    runs the architecture's decode, so the cell is not ``correct``."""
+    cell = _standin_cell(str(tmp_path), STANDIN_OWN)
+    monkeypatch.setattr(cell.arch, "reference_decode", anchors_at_corners)
+    res = _run(cell)
+    assert res["correct"] is False, res["checks"]
+
+
+@pytest.mark.parametrize("given", ["named", "inline"])
+def test_default_input_and_decode_are_yolos(small, given):
+    """Rows of ``detect_map`` on its defaults bit-equal to the same call
+    given YOLO's two functions: by name, and as the arithmetic the
+    reference inlined before an architecture could give its own."""
+    hooks = {"named": {"reference_input": RD.yolo_input,
+                       "reference_decode": M.decode},
+             "inline": {"reference_input": lambda t: t.flip(-1).permute(
+                 0, 3, 1, 2).to(torch.float32) / 255.0,
+                 "reference_decode": lambda out, ts: M.decode(out, ts)}}
+    cfg = DT.reference_config(small.config)
+    image = synth.synthetic_map(2 ** 31 + 9, 0, 640, 640, CPU)[0]
+    models = small.arch.reference_models(cfg, small.root, CPU, "float32")
+    got = RD.detect_map(models, image, cfg, CPU, DT.FLOOR)
+    want = RD.detect_map(models, image, cfg, CPU, DT.FLOOR, **hooks[given])
+    assert len(want["merged_for_pr"]) > 10
+    for ts in want["by_scale"]:
+        np.testing.assert_array_equal(got["by_scale"][ts],
+                                      want["by_scale"][ts])
+    np.testing.assert_array_equal(got["merged_for_pr"],
+                                  want["merged_for_pr"])
 
 
 def test_a_missing_tiny_file_is_named(tmp_path):

@@ -114,20 +114,21 @@ def patched(obj, name, make):
 
 def area_one(inner):
     """The P4 stage attends over one area, the whole map."""
-    def fn(self, x):
+    def fn(self, x, *args, **kw):
         area, self.area = self.area, 1
         try:
-            return inner(self, x)
+            return inner(self, x, *args, **kw)
         finally:
             self.area = area
     return fn
 
 
 def column_areas(inner):
-    """The P4 stage's areas are strips of columns, not of rows."""
-    def fn(self, x):
+    """The P4 stage's areas are strips of columns, not of rows; a residual,
+    where the call gives one, added to the output."""
+    def fn(self, x, *args, **kw):
         if self.area == 1:
-            return inner(self, x)
+            return inner(self, x, *args, **kw)
         B, C, H, W = x.shape
         a, h, d = self.area, self.num_heads, self.head_dim
         qkv = self.qkv(x).transpose(2, 3).flatten(2).transpose(1, 2)
@@ -138,7 +139,9 @@ def column_areas(inner):
         def back(t):
             return t.transpose(1, 2).reshape(B, W, H, C).permute(0, 3, 2, 1)
 
-        return self.proj(back(out) + self.pe(back(v).contiguous()))
+        y = self.proj(back(out) + self.pe(back(v).contiguous()))
+        residual = kw.get("residual", args[0] if args else None)
+        return y if residual is None else y + residual
     return fn
 
 
@@ -148,10 +151,10 @@ def no_pe(inner):
         def forward(self, t):
             return torch.zeros_like(t)
 
-    def fn(self, x):
+    def fn(self, x, *args, **kw):
         pe, self.pe = self.pe, Zero()
         try:
-            return inner(self, x)
+            return inner(self, x, *args, **kw)
         finally:
             self.pe = pe
     return fn
@@ -173,6 +176,32 @@ FAULTS = {"area_one": ("AAttn", area_one),
           "column_areas": ("AAttn", column_areas),
           "no_pe": ("AAttn", no_pe),
           "gamma_ignored": ("A2C2f", gamma_ignored)}
+
+
+@pytest.mark.parametrize("fault", ["area_one", "column_areas", "no_pe"])
+def test_area_attention_faults_pass_their_arguments_on(fault):
+    """Each attention fault hands the arguments after ``x`` on to the
+    forward it wraps, so an ``AAttn.forward`` that takes more (a residual
+    folded in) is broken the same way; ``column_areas``, which rebuilds the
+    forward, adds a given residual to its output."""
+    from oriented_object_detection_tpu_torch.models import layers as TL
+
+    make = FAULTS[fault][1]
+    seen = []
+    fn = make(lambda self, x, *a, **k: seen.append((a, k)) or x)
+    one = TL.AAttn(64, 2, area=1).eval()
+    x, r = torch.randn(2, 1, 64, 8, 8).unbind(0)
+    with torch.no_grad():
+        fn(one, x, r)
+        fn(one, x, residual=r)
+    assert len(seen) == 2
+    assert seen[0][0][0] is r and seen[1][1]["residual"] is r
+    if fault == "column_areas":
+        four = TL.AAttn(64, 2, area=4).eval()
+        with torch.no_grad():
+            bare = fn(four, x)
+            torch.testing.assert_close(fn(four, x, r), bare + r)
+            torch.testing.assert_close(fn(four, x, residual=r), bare + r)
 
 
 def test_sound_run_is_correct(small):
