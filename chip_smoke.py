@@ -48,17 +48,22 @@ bounds hold as before:
              a scale) at 16-, 8-, 4- and 2-byte vectors; then one forward
              at a 4096x4096 sheet's chunk of each YOLO11x dual scale (1764
              tiles of 128, 169 of 416; committed checkpoints) in bf16 and
-             in float32, and at a sheet's 25 YOLO12x tiles of 1024 (seeded
-             weights) in bf16: each fused ConvBN's kernel output bit-equal
-             to its plain version on the same conv output, one launch a
-             fused ConvBN (173 / 211 a forward); in bf16 the output
-             bit-equal to the ``torch.cat`` form (each block's
-             ``forward_plain``), ``STORES``, ``AREA_ATTN`` (YOLO12x: 16
-             calls, 40 areas, 40,960 tokens a tile), a profiled forward
+             in float32, and at a sheet's 25 YOLO12x and 25 RTMDet-R-l
+             tiles of 1024 (seeded weights) in bf16: each fused ConvBN's
+             kernel output bit-equal to its plain version on the same
+             conv output, one launch a fused ConvBN (173 / 211 / 142 a
+             forward); in bf16 the output bit-equal to the ``torch.cat``
+             form (each block's ``forward_plain``), ``STORES``,
+             ``AREA_ATTN`` (YOLO12x: 16 calls, 40 areas, 40,960 tokens a
+             tile), ``CSPNEXT`` (RTMDet-R-l: 30 blocks, 30 depthwise
+             ConvBNs, 4 channel attentions), RTMDet-R-l's head outputs
+             against the plain float32 reference within three times the
+             reference's own bf16 gap, a profiled forward
              with no cuDNN layout transpose whose span holds every
-             epilogue launch and at most 6 / 4 ``torch.cat`` kernels, its
-             device time by kernel (YOLO12x: the ``forward_area_attn``
-             spans' kernels, which name the attention backend), and the
+             epilogue launch and at most 6 / 4 / 5 ``torch.cat`` kernels,
+             its device time by kernel (YOLO12x: the ``forward_area_attn``
+             spans' kernels, which name the attention backend;
+             RTMDet-R-l: the ``forward_depthwise`` spans'), and the
              epilogues' device time by mode beside the plain version's,
              the library's and the bytes bound; then one ``detect_image``
              a detector, launching the kernel once a fused ConvBN a
@@ -723,18 +728,32 @@ def phase_dual(torch, E, img, gt) -> None:
 # tiles of a 4096x4096 sheet at each dual scale: one forward each (the
 # chunks of ``detect_stream`` on the benchmark's sheets)
 SHEET_TILES = {128: 1764, 416: 169}
-# YOLO12x-OBB at the DOTA split: one forward holds a 4096x4096 sheet's tiles
+# YOLO12x-OBB and RTMDet-R-l at the DOTA split: one forward holds a
+# 4096x4096 sheet's tiles
 YOLO12_TILE, YOLO12_OVERLAP, YOLO12_SHEET_TILES = 1024, 200, 25
 # a bf16 forward of each architecture: ``STORES`` (epilogues storing into a
 # concatenation's slice, residuals folded), the ``torch.cat`` kernels left
-# outside the blocks (the head's four, YOLO11's SPPF and C2PSA; PyTorch
-# copies a concatenation of strided parts without its cat kernel) and
-# ``AREA_ATTN``'s calls, and its areas and tokens a tile
+# outside the blocks (the head's four, YOLO11's SPPF and C2PSA, RTMDet's
+# four in the neck and SPP's; PyTorch copies a concatenation of strided
+# parts without its cat kernel), ``AREA_ATTN``'s calls, and its areas and
+# tokens a tile, and ``CSPNEXT``'s blocks, depthwise ConvBNs and channel
+# attentions a forward
 FORWARD_EXPECT = {
     "yolo11x": {"stores": {"concat_parts": 56, "residual_folds": 32},
-                "cats_left": 6, "area_attn": (0, 0, 0)},
+                "cats_left": 6, "area_attn": (0, 0, 0),
+                "cspnext": (0, 0, 0)},
     "yolo12x": {"stores": {"concat_parts": 52, "residual_folds": 42},
-                "cats_left": 4, "area_attn": (16, 40, 40960)}}
+                "cats_left": 4, "area_attn": (16, 40, 40960),
+                "cspnext": (0, 0, 0)},
+    "rtmdet_r_l": {"stores": {"concat_parts": 16, "residual_folds": 15},
+                   "cats_left": 5, "area_attn": (0, 0, 0),
+                   "cspnext": (30, 30, 4)}}
+# the reference configuration whose weight rule RTMDet-R-l's row draws
+RTMDET_CONFIG = os.path.join(REPO, "obbbench", "configs",
+                             "rtmdet_r_l_1024_bf16.json")
+# RTMDet-R-l's bf16 head outputs against the float32 reference, over the
+# reference's own bf16 gap (the CPU test's factor, 1.5-1.8 measured there)
+RTMDET_BF16_FACTOR = 3.0
 # cuDNN's layout transposes around its NHWC kernels
 LAYOUT_KERNELS = ("nchwToNhwc", "nhwcToNchw")
 # PyTorch's torch.cat kernel
@@ -744,20 +763,17 @@ CAT_KERNEL = "CatArrayBatchedCopy"
 SDPA_FUSED = ("flash", "fmha", "attention", "cudnn", "mem_eff")
 
 
-def sheet_chunk(torch, det, img, ts: int, n: int | None = None):
-    """The network input of a 4096x4096 sheet's chunk at tile size ``ts``
-    (``n`` tiles, by default ``SHEET_TILES[ts]``: those of ``img``,
-    repeated), cast and laid out as ``TiledDetector._tile_rows`` does."""
-    from oriented_object_detection_tpu_torch.ops import dtedge as DT
+def sheet_tiles(torch, det, img, ts: int, n: int | None = None):
+    """The uint8 BGR tiles [n, ts, ts, 3] of a 4096x4096 sheet's chunk at
+    tile size ``ts`` (``n`` tiles, by default ``SHEET_TILES[ts]``: those of
+    ``img``, repeated)."""
     from oriented_object_detection_tpu_torch.ops import tiling as T
 
     ov = next(sc.overlap for sc in det.cfg.scales if sc.tile_size == ts)
     grid = T.inference_tile_grid(*img.shape[:2], ts, ov)
     tiles = T.extract_tiles(torch.from_numpy(img).cuda(), grid, ts)
-    tiles = tiles[torch.arange(n or SHEET_TILES[ts], device=tiles.device)
-                  % len(tiles)]
-    return (DT.build_multich(tiles, det.cfg.channels) / 255.0).to(
-        det.dtype, memory_format=det.layout)
+    return tiles[torch.arange(n or SHEET_TILES[ts], device=tiles.device)
+                 % len(tiles)]
 
 
 @contextlib.contextmanager
@@ -896,12 +912,13 @@ def kernels_in_span(prof, span: str, ms: bool = False) -> dict:
 
 @contextlib.contextmanager
 def layer_spans(torch, model):
-    """Each layer of ``model.model`` (its yaml index ``i``) inside a
-    profiler range ``obb/layer_<i>`` while it runs."""
+    """Each layer of ``model.model`` (its yaml index ``i``; RTMDet-R's
+    ``backbone``, ``neck`` and ``bbox_head``) inside a profiler range
+    ``obb/layer_<i>`` while it runs."""
     from oriented_object_detection_tpu_torch.utils import profiling as P
 
     handles, ranges = [], {}
-    for name, layer in model.model.named_children():
+    for name, layer in getattr(model, "model", model).named_children():
         def enter(mod, args, _name=name):
             ranges[_name] = torch.autograd.profiler.record_function(
                 f"{P.SPAN_PREFIX}layer_{_name}")
@@ -953,9 +970,11 @@ def forward_kernels(torch, model, x) -> dict:
     holds, the ``torch.cat`` kernels, every kernel whose name speaks of a
     layout (NCHW/NHWC, transpose) with its ms, the elementwise kernels
     by the layer and the operator that launched them (``elementwise_ops``,
-    the layers in ``layer_spans``), and the kernels of the
+    the layers in ``layer_spans``), the kernels of the
     ``forward_area_attn`` spans with their ms and the attention backend
-    they name (none in a model without area attention)."""
+    they name (none in a model without area attention), and those of the
+    ``forward_depthwise`` spans (none in a model without CSPNeXt
+    blocks)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from oriented_object_detection_tpu_torch.utils import profiling as P
@@ -974,6 +993,9 @@ def forward_kernels(torch, model, x) -> dict:
                               kernels_in_span(prof, attn))
     sdpa = sorted({k[:120] for k in attn_ms
                    if any(t in k.lower() for t in SDPA_FUSED)})
+    dw = P.SPAN_PREFIX + "forward_depthwise"
+    dw_ms, dw_launches = (kernels_in_span(prof, dw, ms=True),
+                          kernels_in_span(prof, dw))
     ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA
            and not e.name.startswith(P.SPAN_PREFIX)]
     if not ops:
@@ -1009,7 +1031,11 @@ def forward_kernels(torch, model, x) -> dict:
                 for k, v in sorted(attn_ms.items(), key=lambda kv: -kv[1])],
             "sdpa_backend": None if not attn_ms else (
                 "fused: " + "; ".join(sdpa) if sdpa
-                else "math (matmul + softmax kernels)")}
+                else "math (matmul + softmax kernels)"),
+            "depthwise_ms": sum(dw_ms.values()),
+            "depthwise_kernels": [
+                {"name": k[:120], "ms": v, "launches": dw_launches[k]}
+                for k, v in sorted(dw_ms.items(), key=lambda kv: -kv[1])]}
 
 
 # channel counts whose bf16 pixel rows take the epilogue's 16-, 8-, 4- and
@@ -1023,7 +1049,8 @@ def cat_form(TL):
     """Every block through its ``forward_plain``: the concatenations by
     ``torch.cat`` and the residual adds apart, as the forward ran before
     the blocks built their concatenations in place."""
-    blocks = (TL.Bottleneck, TL.C3k, TL.C3k2, TL.ABlock, TL.A2C2f)
+    blocks = (TL.Bottleneck, TL.C3k, TL.C3k2, TL.ABlock, TL.A2C2f,
+              TL.CSPNeXtBlock, TL.CSPLayer)
     saved = {cls: cls.forward for cls in blocks}
     for cls in blocks:
         cls.forward = cls.forward_plain
@@ -1091,11 +1118,11 @@ def forward_checks(torch, TL, EP, model, x, label: str, fused: int,
     through ``checked_epilogue``: each bit-equal to its plain version,
     ``fused`` launches. With ``expect`` (``FORWARD_EXPECT``'s entry of the
     model, in bf16) also: the output bit-equal to the ``torch.cat`` form's
-    (``cat_form``), ``STORES`` and ``AREA_ATTN`` as expected, a profiled
-    forward (``forward_kernels``) with no cuDNN layout transpose, every
-    epilogue launch inside its span and at most ``cats_left`` ``torch.cat``
-    kernels, and the epilogues' device ms by mode
-    (``epilogue_times``)."""
+    (``cat_form``), ``STORES``, ``AREA_ATTN`` and ``CSPNEXT`` as expected,
+    a profiled forward (``forward_kernels``) with no cuDNN layout
+    transpose, every epilogue launch inside its span and at most
+    ``cats_left`` ``torch.cat`` kernels, and the epilogues' device ms by
+    mode (``epilogue_times``)."""
     seen = []
     checked = checked_epilogue(torch, EP, label, seen)
     with torch.inference_mode():
@@ -1103,7 +1130,7 @@ def forward_checks(torch, TL, EP, model, x, label: str, fused: int,
             with cat_form(TL):
                 want = model(x)
         EP.STORES.update(concat_parts=0, residual_folds=0)
-        attn0 = dict(TL.AREA_ATTN)
+        attn0, csp0 = dict(TL.AREA_ATTN), dict(TL.CSPNEXT)
         before = EP.LAUNCHES["bias_silu_nhwc"]
         with epilogue_as(TL, checked):
             got = model(x)
@@ -1118,20 +1145,25 @@ def forward_checks(torch, TL, EP, model, x, label: str, fused: int,
                                               if sh[1] % 8})}
     if expect is None:
         return row
-    for key in ("box", "cls", "ang"):
+    for key in want:
         for a, b in zip(want[key], got[key]):
             if not torch.equal(a, b):
                 raise AssertionError(f"{label}: the in-place forward's {key} "
                                      f"differs from the torch.cat form's")
     del want, got
     calls, areas, tokens = expect["area_attn"]
+    blocks, depthwise, channel_attn = expect["cspnext"]
     row.update(bit_equal_to_cat_form=True, stores=dict(EP.STORES),
-               area_attn={k: TL.AREA_ATTN[k] - attn0[k] for k in attn0})
+               area_attn={k: TL.AREA_ATTN[k] - attn0[k] for k in attn0},
+               cspnext={k: TL.CSPNEXT[k] - csp0[k] for k in csp0})
     if row["stores"] != expect["stores"] or row["area_attn"] != {
             "calls": calls, "areas": areas * len(x),
-            "tokens": tokens * len(x)}:
+            "tokens": tokens * len(x)} or row["cspnext"] != {
+            "blocks": blocks, "depthwise": depthwise,
+            "channel_attn": channel_attn,
+            "tiles": len(x) if blocks else 0}:
         raise AssertionError(f"{label}: STORES {row['stores']}, AREA_ATTN "
-                             f"{row['area_attn']}")
+                             f"{row['area_attn']}, CSPNEXT {row['cspnext']}")
     fwd = row["forward"] = forward_kernels(torch, model, x)
     if fwd["cudnn_transposes"]:
         raise AssertionError(f"{label}: cuDNN layout transposes in the "
@@ -1146,6 +1178,47 @@ def forward_checks(torch, TL, EP, model, x, label: str, fused: int,
     return row
 
 
+def rtmdet_state() -> dict:
+    """RTMDet-R-l's seeded weights (mmrotate keys), drawn and calibrated
+    by the benchmark configuration's rule (``obbbench/reference/
+    rtmdet_r.py``, on the host)."""
+    from obbbench.reference import rtmdet_r as RR
+
+    with open(RTMDET_CONFIG) as f:
+        cfg = json.load(f)
+    return RR.make_state(cfg["model_scale"], cfg["nc"], cfg["weights"])
+
+
+def rtmdet_against_reference(torch, det, model, tiles, state) -> dict:
+    """RTMDet-R-l's bf16 forward of ``tiles`` (uint8 BGR) through the
+    detector's input against the plain float32 reference's on the card
+    (TF32 off): the head outputs' largest gap over their largest value,
+    which must stay under ``RTMDET_BF16_FACTOR`` times the reference's own
+    bf16 rounding's gap."""
+    from obbbench.reference import rtmdet_r as RR
+
+    def flat(out):
+        return torch.cat([torch.cat([o.float().flatten(2).transpose(1, 2)
+                                     for o in out[k]], 1)
+                          for k in ("cls", "reg", "ang")], -1)
+
+    def gap(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    ref = RR.build(state, "l", 12, "cuda").eval()
+    x = RR.reference_input(tiles)
+    with torch.inference_mode():
+        want = flat(ref(x))
+        ref_gap = gap(flat(ref.set_precision("bf16")(x)), want)
+        got = flat(model(det.network_input(tiles, YOLO12_TILE)))
+    row = {"tiles": len(tiles), "gap": gap(got, want),
+           "reference_bf16_gap": ref_gap}
+    if not (torch.isfinite(got).all()
+            and row["gap"] < RTMDET_BF16_FACTOR * ref_gap):
+        raise AssertionError(f"RTMDet-R-l against the reference: {row}")
+    return row
+
+
 def phase_forward(torch, img) -> dict:
     """The fused ConvBN's epilogue kernel (``csrc/epilogue.cu``) and the
     blocks' concatenations built in place (``models/layers.py``), in the
@@ -1155,10 +1228,12 @@ def phase_forward(torch, img) -> dict:
     scale (committed checkpoints) in bf16 and float32 (the float32
     detector: the epilogues and launches alone) and at a sheet's 25
     YOLO12x tiles of 1024 (seeded weights, ``random_variables(...,
-    arch="yolo12")``) in bf16; then one ``detect_image`` a detector,
-    launching the kernel once a fused ConvBN a forward (and YOLO12x's 16
-    area attention blocks once); last ``sheet_stream`` on the YOLO11x bf16
-    detector."""
+    arch="yolo12")``) and RTMDet-R-l tiles of 1024 (the benchmark
+    configuration's seeded weights, ``rtmdet_state``; also held against the
+    plain reference, ``rtmdet_against_reference``) in bf16; then one
+    ``detect_image`` a detector, launching the kernel once a fused ConvBN a
+    forward (and YOLO12x's 16 area attention blocks once); last
+    ``sheet_stream`` on the YOLO11x bf16 detector."""
     from oriented_object_detection_tpu_torch.config import (DetectConfig,
                                                           ScaleConfig)
     from oriented_object_detection_tpu_torch.infer.pipeline import (
@@ -1168,7 +1243,11 @@ def phase_forward(torch, img) -> dict:
 
     out = {"modes_bit_equal": epilogue_modes(torch, EP)}
     emit({"phase": "forward", **out})
+    from oriented_object_detection_tpu_torch.models.weights import (
+        jax_trees_from_torch_state)
+
     ts12 = YOLO12_TILE
+    rtm = rtmdet_state()
     builds = {
         ("yolo11x", "bf16"): lambda: build_detector(DUAL),
         ("yolo11x", "float32"): lambda: build_detector(DUAL, **F32),
@@ -1176,7 +1255,12 @@ def phase_forward(torch, img) -> dict:
             DetectConfig(scales=(ScaleConfig(ts12, YOLO12_OVERLAP,
                                              model_scale="x",
                                              arch="yolo12"),)),
-            {ts12: random_variables(12, "x", 3, seed=0, arch="yolo12")})}
+            {ts12: random_variables(12, "x", 3, seed=0, arch="yolo12")}),
+        ("rtmdet_r_l", "bf16"): lambda: TiledDetector(
+            DetectConfig(scales=(ScaleConfig(ts12, YOLO12_OVERLAP,
+                                             model_scale="l",
+                                             arch="rtmdet_r"),)),
+            {ts12: jax_trees_from_torch_state(rtm)})}
     for (arch, dtype), build in builds.items():
         det = build()
         if det.layout != torch.channels_last or det.dtype != {
@@ -1187,15 +1271,19 @@ def phase_forward(torch, img) -> dict:
                          for m in model.modules())
                  for ts, model in det.models.items()}
         for ts, model in det.models.items():
-            x = sheet_chunk(torch, det, img, ts,
-                            YOLO12_SHEET_TILES if arch == "yolo12x" else None)
+            tiles = sheet_tiles(torch, det, img, ts, None if arch == "yolo11x"
+                                else YOLO12_SHEET_TILES)
+            x = det.network_input(tiles, ts)
             row = forward_checks(
                 torch, TL, EP, model, x, f"{arch} {dtype} tile {ts}",
                 fused[ts], FORWARD_EXPECT[arch] if dtype == "bf16" else None)
+            if arch == "rtmdet_r_l":
+                row["reference"] = rtmdet_against_reference(
+                    torch, det, model, tiles, rtm)
             out[f"{arch}_{dtype}_{ts}"] = row
             emit({"phase": "forward", "model": arch, "dtype": dtype,
                   "tile": ts, "tiles": len(x), **row})
-            del x
+            del x, tiles
         before = EP.LAUNCHES["bias_silu_nhwc"]
         calls = TL.AREA_ATTN["calls"]
         res = det.detect_image(img)

@@ -63,7 +63,7 @@ class ScaleConfig:
     overlap: int
     checkpoint: Optional[str] = None
     model_scale: str = "x"
-    arch: str = "yolo11"                 # models/archs.py: yolo11, yolo12
+    arch: str = "yolo11"     # models/archs.py: yolo11, yolo12, rtmdet_r
 
 
 @dataclass(frozen=True)

@@ -1,8 +1,10 @@
 """Tiled multi-scale OBB inference.
 
-Per scale, on the device: gather the tile batch -> (DT-Edge if 4ch) -> /255
--> YOLO11-OBB or YOLO12-OBB forward -> decode -> the engine's ProbIoU NMS
--> stitch to map coordinates -> border filter -> Strike angles. On the
+Per scale, on the device: gather the tile batch -> the architecture's
+input (YOLO: DT-Edge if 4ch, /255; RTMDet-R: BGR mean and std) -> YOLO11-OBB,
+YOLO12-OBB or RTMDet-R forward -> the architecture's decode -> the
+engine's ProbIoU NMS -> stitch to map coordinates -> border filter ->
+Strike angles. On the
 host: the per-tile exact-IoU merge, the cross-scale consensus fusion and
 the global merges (``infer/fusion.py``, ``csrc/fusion_grid.cpp`` over
 ``native/geom.cpp``), then the ``{stem}_detected.jpg`` and ``{stem}.xlsx``
@@ -21,7 +23,8 @@ group before them was still unfetched. The tiles go through the network
 in chunks of a fixed number of pixels, so memory stays bounded however
 many maps come. Under a ``torch.profiler`` the path marks its layers with
 ``utils/profiling`` spans: the stages, ``tiles_<tile>``,
-``forward_<tile>``, ``decode_raw`` and ``postprocess_batch``.
+``forward_<tile>`` (holding ``models/layers.py``'s ``forward_area_attn``
+and ``forward_depthwise``), ``decode_raw`` and ``postprocess_batch``.
 ``predict_crop`` is the reference's single-crop predictor (letterbox, one
 forward, no tiling).
 
@@ -44,8 +47,7 @@ from ..models.fold import fold_bn_state
 from ..models.weights import (jax_trees_from_torch_state, load_checkpoint,
                               load_state, torch_state_from_jax,
                               variables_from_checkpoint)
-from ..models.archs import model_class
-from ..ops import dtedge as DT
+from ..models.archs import arch as arch_of
 from ..ops import geometry as G
 from ..ops import image as IM
 from ..ops import tiling as T
@@ -109,10 +111,13 @@ class TiledDetector:
     params_by_scale: {tile_size: flax variables {'params', 'batch_stats'}
     as numpy trees}, the JAX package's checkpoint format
     (``models.weights.variables_from_checkpoint``); each scale's model is
-    built at its ``ScaleConfig.model_scale`` and ``arch``. ``device=None``
+    built at its ``ScaleConfig.model_scale`` and ``arch``, which also gives
+    its tile input, its decode and the eps its BatchNorm is folded with
+    (``models/archs.py``). ``device=None``
     runs on the CUDA card; pass ``device="cpu"`` for the CPU. The network computes in
-    ``cfg.compute_dtype``: the tiles are cast after ``/255`` (DT-Edge is
-    built in float32 before), decode and NMS upcast to float32. On the card
+    ``cfg.compute_dtype``: the tiles are cast after the architecture's
+    float32 input (``/255`` for YOLO, DT-Edge built before), decode and
+    NMS upcast to float32. On the card
     the models hold their weights channels-last and take their input so
     (``layout``), so the forward runs in NHWC order end to end
     (``models/layers.py``); on the CPU both stay NCHW.
@@ -129,15 +134,15 @@ class TiledDetector:
         self.dtype = torch_dtype(cfg.compute_dtype)
         self.layout = (torch.channels_last if self._on_card()
                        else torch.contiguous_format)
-        self.models = {}
+        self.models, self.archs = {}, {}
         for sc in cfg.scales:
+            arch = self.archs[sc.tile_size] = arch_of(sc.arch)
             # the engine's fuse() before predict: BN folded into the
             # convs, and the fused conv + bias + SiLU graph
             state = fold_bn_state(torch_state_from_jax(
-                params_by_scale[sc.tile_size]))
-            model = model_class(sc.arch)(nc=cfg.nc, scale=sc.model_scale,
-                                         in_channels=cfg.channels,
-                                         fused_bn=True)
+                params_by_scale[sc.tile_size]), arch.bn_eps)
+            model = arch.model(nc=cfg.nc, scale=sc.model_scale,
+                               in_channels=cfg.channels, fused_bn=True)
             load_state(model, state)
             # the folded weights in the compute dtype, once: the values of
             # flax's cast of the float32 weights at every apply
@@ -190,19 +195,27 @@ class TiledDetector:
         done.record()
         return buf, done
 
+    def network_input(self, tiles: torch.Tensor, ts: int) -> torch.Tensor:
+        """The scale model's input of uint8 BGR tiles [n, ts, ts, 3]: the
+        architecture's float32 input, cast to the compute dtype in the
+        model's layout."""
+        arch = self.archs[ts]
+        # the tiles come in NHWC order; one cast gives the model's layout
+        return arch.normalise(arch.pixels(
+            tiles, self.cfg.channels, self.cfg.dt_edge)).to(
+            self.dtype, memory_format=self.layout)
+
     def _tile_rows(self, tiles: torch.Tensor, grid_t: torch.Tensor,
                    first: int, ts: int) -> torch.Tensor:
         """Rows [n, max_det, 13] (x1..y4, cls, conf, angle, valid, tile_id)
         of n tiles [n, ts, ts, 3] at origins ``grid_t`` [n, 4], the first
         being tile ``first`` of the scale's batch."""
         cfg = self.cfg
-        # the tiles come in NHWC order; one cast gives the model's layout
-        x = (DT.build_multich(tiles, cfg.channels, cfg.dt_edge)
-             / 255.0).to(self.dtype, memory_format=self.layout)
+        x = self.network_input(tiles, ts)
         with prof.span(f"forward_{ts}"):
             out = self.models[ts](x)
         with prof.span("decode_raw"):
-            rbox, scores = D.decode_raw(out, ts)
+            rbox, scores = self.archs[ts].decode(out, ts)
         with prof.span("postprocess_batch"):
             dets = D.postprocess_batch(
                 rbox, scores, self._conf_thr(), cfg.engine_nms_iou,
@@ -393,13 +406,14 @@ class TiledDetector:
             raise ValueError(f"no model for tile size {ts}; have "
                              f"{sorted(self.models)}")
         cfg = self.cfg
+        arch = self.archs[ts]
         crop = torch.from_numpy(np.ascontiguousarray(crop_bgr)).to(
             self.device)
-        mc = DT.build_multich(crop[None], cfg.channels, cfg.dt_edge)[0]
+        mc = arch.pixels(crop[None], cfg.channels, cfg.dt_edge)[0]
         x, ratio, (dw, dh) = IM.letterbox(mc.permute(1, 2, 0), ts)
-        out = self.models[ts]((x.permute(2, 0, 1)[None] / 255.0).to(
+        out = self.models[ts](arch.normalise(x.permute(2, 0, 1)[None]).to(
             self.dtype))
-        rbox, scores = D.decode_raw(out, ts)
+        rbox, scores = arch.decode(out, ts)
         dets = D.postprocess_batch(
             rbox, scores, self._conf_thr(), cfg.engine_nms_iou,
             max_det=cfg.max_det_per_tile, pre_topk=cfg.pre_topk)

@@ -1,6 +1,8 @@
 """Raw head outputs -> rotated boxes, and the engine's fixed-shape
-postprocess: DFL softmax expectation, angle sigmoid to [-pi/4, 3pi/4),
-dist2rbox on the anchor grid, confidence filter and one-shot ProbIoU NMS
+postprocess: YOLO's DFL softmax expectation, angle sigmoid to
+[-pi/4, 3pi/4), dist2rbox on the anchor grid (``decode_raw``), or
+RTMDet-R's distance-angle decode (``decode_distance_angle``); then the
+confidence filter and one-shot ProbIoU NMS shared by every architecture
 (`Detect_OBB.py:228-231`, engine iou 0.7)."""
 
 from __future__ import annotations
@@ -71,6 +73,25 @@ def decode_raw(out: dict, img_size: int, reg_max: int = 16):
     rbox = torch.cat([rbox[..., :4] * strides[None, :, None],
                       rbox[..., 4:]], dim=-1)
     return rbox, torch.sigmoid(cls.float())
+
+
+def decode_distance_angle(out: dict, img_size: int):
+    """RTMDet-R's head outputs {"cls", "reg", "ang"} -> (xywhr [B, A, 5] in
+    input pixels, scores [B, A, nc]), as mmrotate's head and its
+    ``DistanceAnglePointCoder`` decode them, in float32: the distances
+    ``exp(reg) * stride``, anchors at offset 0 in pixels, the centre and
+    size by ``dist2rbox``'s algebra rotated by the raw angle, then the
+    angle normalised to le90, [-pi/2, pi/2); scores ``sigmoid(cls)``."""
+    reg = flatten_levels(out["reg"]).float()
+    cls = flatten_levels(out["cls"])
+    ang = flatten_levels(out["ang"])[..., 0].float()
+    anchor_pts, strides = make_anchors(img_size, reg.device, offset=0.0)
+    rbox = dist2rbox(reg.exp() * strides[None, :, None], ang,
+                     (anchor_pts * strides[:, None])[None])
+    le90 = torch.remainder(rbox[..., 4:] + math.pi / 2, math.pi) \
+        - math.pi / 2
+    return torch.cat([rbox[..., :4], le90], dim=-1), torch.sigmoid(
+        cls.float())
 
 
 def postprocess_batch(rbox: torch.Tensor, scores: torch.Tensor,

@@ -2,9 +2,12 @@
 ultralytics' module names, so that a state dict has ultralytics' keys:
 ConvBN (ultralytics ``Conv``), Bottleneck, C3k, C3k2, SPPF, Attention,
 PSABlock, C2PSA, YOLO12's area attention (AAttn, ABlock, A2C2f) and the
-nearest-neighbour 2x upsample.
+nearest-neighbour 2x upsample; and RTMDet's CSPNeXt blocks with mmdet's
+module names (CSPNeXtBlock, ChannelAttention, CSPLayer, SPPBottleneck),
+whose ConvBN is mmcv's ``ConvModule``.
 
-BatchNorm uses eps 1e-3 like ultralytics. In training mode it follows
+BatchNorm uses eps 1e-3 like ultralytics (``models/rtmdet_r.py`` sets
+mmcv's 1e-5 on its own). In training mode it follows
 flax's ``nn.BatchNorm`` (the JAX package's), not ``nn.BatchNorm2d``'s
 update: see ``BatchNorm``. A ConvBN whose ``fused`` flag is set runs the
 fused inference graph, conv + BN bias + SiLU, which is right once
@@ -56,6 +59,9 @@ BN_MOMENTUM = 0.97  # flax's: running = 0.97 * running + 0.03 * batch
 
 # AAttn forwards: calls, areas (attention groups of a batch) and tokens
 AREA_ATTN = {"calls": 0, "areas": 0, "tokens": 0}
+# CSPNeXtBlock and ChannelAttention forwards, the depthwise ConvBNs among
+# them, and the tiles through an RTMDet-R forward (``models/rtmdet_r.py``)
+CSPNEXT = {"blocks": 0, "depthwise": 0, "channel_attn": 0, "tiles": 0}
 
 
 def at_least_float32(x: torch.Tensor) -> torch.Tensor:
@@ -274,6 +280,16 @@ class C3k2(nn.Module):
         return self.cv2(torch.cat(ys, 1))
 
 
+def spp_cascade(cv1: ConvBN, cv2: ConvBN, x: torch.Tensor,
+                k: int = 5) -> torch.Tensor:
+    """``cv2(cat[y, pool(y), pool(pool(y)), pool(pool(pool(y)))])`` with
+    ``y = cv1(x)`` and ``pool`` a stride-1 k x k max pool."""
+    ys = [cv1(x)]
+    for _ in range(3):
+        ys.append(F.max_pool2d(ys[-1], k, 1, k // 2))
+    return cv2(torch.cat(ys, 1))
+
+
 class SPPF(nn.Module):
     """Spatial pyramid pooling (fast): 3 chained stride-1 maxpools."""
 
@@ -285,10 +301,7 @@ class SPPF(nn.Module):
         self.k = k
 
     def forward(self, x):
-        ys = [self.cv1(x)]
-        for _ in range(3):
-            ys.append(F.max_pool2d(ys[-1], self.k, 1, self.k // 2))
-        return self.cv2(torch.cat(ys, 1))
+        return spp_cascade(self.cv1, self.cv2, x, self.k)
 
 
 class Attention(nn.Module):
@@ -477,6 +490,121 @@ class A2C2f(nn.Module):
         if self.gamma is None:
             return y
         return x + self.gamma.to(y.dtype)[:, None, None] * y
+
+
+class DepthwiseSeparableConv(nn.Module):
+    """mmcv's ``DepthwiseSeparableConvModule``: a depthwise k x k ConvBN
+    with SiLU (``depthwise_conv``), then a pointwise 1x1 ConvBN with SiLU
+    (``pointwise_conv``)."""
+
+    def __init__(self, c1: int, c2: int, k: int):
+        super().__init__()
+        self.depthwise_conv = ConvBN(c1, c1, k, g=c1)
+        self.pointwise_conv = ConvBN(c1, c2, 1)
+
+
+class CSPNeXtBlock(nn.Module):
+    """mmdet's ``CSPNeXtBlock`` (expansion 1): a 3x3 ConvBN (``conv1``),
+    then a depthwise 5x5 and a pointwise 1x1 ConvBN (``conv2``), each with
+    SiLU, and the input added where ``add_identity``. Each depthwise ConvBN,
+    its convolution and its epilogue, is the span ``forward_depthwise``;
+    each forward counts itself in ``CSPNEXT``. Fused, the identity is
+    folded into the pointwise ConvBN's epilogue, which stores to ``outs``."""
+
+    def __init__(self, c1: int, c2: int, add_identity: bool = True,
+                 k: int = 5):
+        super().__init__()
+        self.conv1 = ConvBN(c1, c2, 3)
+        self.conv2 = DepthwiseSeparableConv(c2, c2, k)
+        self.add_identity = add_identity and c1 == c2
+
+    def _depthwise(self, x):
+        with prof.span("forward_depthwise"):
+            y = self.conv2.depthwise_conv(x)
+        CSPNEXT["blocks"] += 1
+        CSPNEXT["depthwise"] += 1
+        return y
+
+    def forward(self, x, outs=()):
+        pw = self.conv2.pointwise_conv
+        if not pw.fused:
+            return self.forward_plain(x)
+        return pw(self._depthwise(self.conv1(x)), outs,
+                  x if self.add_identity else None)
+
+    def forward_plain(self, x):
+        y = self.conv2.pointwise_conv(self._depthwise(self.conv1(x)))
+        return y + x if self.add_identity else y
+
+
+class ChannelAttention(nn.Module):
+    """mmdet's ``ChannelAttention``: ``x * hardsigmoid(fc(mean_hw(x)))``,
+    ``fc`` a 1x1 conv with a bias. The gate is computed in float32, as
+    mmdet computes it outside autocast, and cast to ``x``'s dtype for the
+    product."""
+
+    def __init__(self, c: int):
+        super().__init__()
+        self.fc = Conv2d(c, c, 1, bias=True)
+
+    def forward(self, x):
+        gate = F.hardsigmoid(self.fc(at_least_float32(x).mean(
+            dim=(2, 3), keepdim=True)))
+        CSPNEXT["channel_attn"] += 1
+        return x * gate.to(x.dtype)
+
+
+class CSPLayer(nn.Module):
+    """mmdet's ``CSPLayer`` of CSPNeXt blocks: ``final_conv(attention?(
+    cat[blocks(main_conv(x)), short_conv(x)]))``, the middle width
+    ``0.5 * c2``. Fused, the last block and ``short_conv`` store their
+    outputs into their slices of the concatenation."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1,
+                 add_identity: bool = True, channel_attention: bool = False):
+        super().__init__()
+        c_ = int(c2 * 0.5)
+        self.main_conv = ConvBN(c1, c_, 1)
+        self.short_conv = ConvBN(c1, c_, 1)
+        self.final_conv = ConvBN(2 * c_, c2, 1)
+        self.blocks = nn.Sequential(*(CSPNeXtBlock(c_, c_, add_identity)
+                                      for _ in range(n)))
+        self.attention = ChannelAttention(2 * c_) if channel_attention \
+            else None
+
+    def _final(self, y):
+        if self.attention is not None:
+            y = self.attention(y)
+        return self.final_conv(y)
+
+    def forward(self, x):
+        if not self.final_conv.fused:
+            return self.forward_plain(x)
+        c = self.main_conv.conv.out_channels
+        buf = concat_buffer(x, 2 * c)
+        run_into(self.blocks, self.main_conv(x), [(buf[:, :c], 0)])
+        self.short_conv(x, [(buf[:, c:], 0)])
+        return self._final(buf)
+
+    def forward_plain(self, x):
+        return self._final(torch.cat([self.blocks(self.main_conv(x)),
+                                      self.short_conv(x)], 1))
+
+
+class SPPBottleneck(nn.Module):
+    """mmdet's ``SPPBottleneck``: 1x1 ConvBN (``conv1``) to half the
+    channels, ``cat[x, max5, max9, max13]`` (stride 1, padding k // 2),
+    1x1 ConvBN (``conv2``). The pools are SPPF's cascade of 5x5 pools: with
+    -inf padding, max9 = max5(max5) and max13 = max5(max9), exactly."""
+
+    def __init__(self, c1: int, c2: int):
+        super().__init__()
+        c_ = c1 // 2
+        self.conv1 = ConvBN(c1, c_, 1)
+        self.conv2 = ConvBN(4 * c_, c2, 1)
+
+    def forward(self, x):
+        return spp_cascade(self.conv1, self.conv2, x)
 
 
 def upsample2x(x: torch.Tensor) -> torch.Tensor:

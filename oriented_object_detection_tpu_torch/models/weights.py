@@ -7,7 +7,11 @@ A checkpoint is a pickle of {'step', 'params', 'batch_stats',
 'ema_params', 'opt_state', 'extra'} nested dicts of numpy arrays (the JAX
 package's ``train/trainer.py``). The flax paths are renamed to ultralytics
 keys and conv kernels transposed HWIO -> OIHW, as the JAX package's
-``models/weights.py`` exports them, and back.
+``models/weights.py`` exports them, and back. RTMDet-R's keys are
+mmrotate's (``backbone.``, ``neck.``, ``bbox_head.``): its flax path is the
+key's dotted parts with the leaf renamed (``conv.weight`` ->
+``conv/kernel``, ``bn.weight`` -> ``bn/scale``, ``bn.running_var`` ->
+``bn/var`` under ``batch_stats``).
 """
 
 from __future__ import annotations
@@ -25,6 +29,10 @@ KERNEL_AXES = (3, 2, 0, 1)
 # the OBB head's layer: 23 in YOLO11, 21 in YOLO12 (neither has a layer
 # with parameters at the other's index)
 HEAD_LAYERS = ("21", "23")
+# the first part of every RTMDet-R key (``models/rtmdet_r.py``)
+MMROTATE_ROOTS = ("backbone", "neck", "bbox_head")
+_MMROTATE_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias",
+                    "mean": "running_mean", "var": "running_var"}
 _FLAX_KERNEL_AXES = tuple(int(a) for a in np.argsort(KERNEL_AXES))
 
 
@@ -110,6 +118,10 @@ def variables_from_checkpoint(ck, use_ema: bool = True) -> dict:
 def _flax_path_to_torch(path: list[str]) -> str | None:
     parts = []
     leaf = path[-1]
+    if path[0] in MMROTATE_ROOTS:
+        if leaf not in _MMROTATE_LEAVES:
+            return None
+        return ".".join(path[:-1] + [_MMROTATE_LEAVES[leaf]])
     for p in path[:-1]:
         m = re.match(r"^l(\d+)$", p)
         if m:
@@ -173,6 +185,14 @@ def _torch_key_to_flax(key: str) -> tuple[str, list[str]]:
     """Inverse of ``_flax_path_to_torch``: an ultralytics key -> (flax
     collection, path). Raises for a key with no flax leaf."""
     parts = key.split(".")
+    if parts[0] in MMROTATE_ROOTS and len(parts) > 2:
+        path, leaf = parts[:-1], parts[-1]
+        if path[-1] == "bn" and leaf in _BN_LEAVES:
+            coll, name = _BN_LEAVES[leaf]
+            return coll, path + [name]
+        if leaf in ("weight", "bias") and path[-1] != "bn":
+            return "params", path + [{"weight": "kernel"}.get(leaf, leaf)]
+        raise KeyError(f"no flax path for torch key {key}")
     if parts[0] != "model" or len(parts) < 3:
         raise KeyError(f"no flax path for torch key {key}")
     path, rest = [f"l{parts[1]}"], parts[2:-1]

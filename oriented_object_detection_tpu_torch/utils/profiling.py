@@ -15,6 +15,13 @@
   the pipeline it measures. A caller that wants a span to hold the
   device's time synchronizes inside it.
 * ``report()`` - per stage calls, total and mean.
+
+Besides the stage spans the detect path opens ``tiles_<tile>``,
+``forward_<tile>``, ``decode_raw`` and ``postprocess_batch``
+(``infer/pipeline.py``), and inside ``forward_<tile>`` one
+``forward_area_attn`` a YOLO12 area-attention block and one
+``forward_depthwise`` a CSPNeXt block's depthwise ConvBN
+(``models/layers.py``).
 """
 
 from __future__ import annotations
